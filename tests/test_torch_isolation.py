@@ -1,0 +1,129 @@
+"""The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
+JAX, flax or the JAX package; its modules import without nvcc or a card;
+its entry points refuse to run quietly on the CPU; its kernel wrapper
+refuses CPU tensors."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "shape_based_object_detection_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shape_based_object_detection_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_modules_import_without_jax_or_nvcc():
+    """In a fresh interpreter with jax and flax made unimportable and no
+    nvcc on PATH, every module of the port imports, and none of them pulls
+    in the JAX package."""
+    names = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                   for p in PORT.rglob("*.py"))
+    names = [n[: -len(".__init__")] if n.endswith(".__init__") else n for n in names]
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'shape_based_object_detection_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=str(ROOT),
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("CUDA_HOME", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.detection import make_detect_fn
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.serving import Predictor
+
+    _no_cuda(monkeypatch)
+    cfg = config.get_config("tiny_retinanet")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg.model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg, batch_size=1)
+    module, anchors = build_model(cfg.model, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_detect_fn(module, anchors, cfg.model)
+    assert next(module.parameters()).device.type == "cpu"
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    from shape_based_object_detection_torch.ops import nms_cuda
+
+    boxes = torch.rand(2, 8, 4)
+    scores = torch.rand(2, 8)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    classes = torch.zeros(2, 8, dtype=torch.int32)
+    before = nms_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms_cuda.greedy_nms_cuda(boxes, scores, valid, 0.5, 4)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms_cuda.batched_class_aware_nms_cuda(boxes, scores, classes, valid, 0.5, 4)
+    assert nms_cuda.launches == before
+
+
+def test_run_nms_routes_by_device_and_backend():
+    """'auto' on CPU tensors is the plain version; 'cuda' (and the
+    reference's 'pallas') means the kernel and so raises on CPU tensors;
+    unported options raise NotImplementedError."""
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.detection import run_nms
+    from shape_based_object_detection_torch.ops import nms as nms_lib
+
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 0.5, (2, 32, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + 0.3], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.uniform(0, 1, (2, 32)).astype(np.float32))
+    classes = torch.from_numpy(rng.integers(0, 3, (2, 32)).astype(np.int32))
+    valid = torch.ones(2, 32, dtype=torch.bool)
+    cfg = config.tiny_test_model("retinanet")
+    got = run_nms(boxes, scores, classes, valid, cfg)
+    want = nms_lib.batched_class_aware_nms(boxes, scores, classes, valid,
+                                           cfg.detect.nms_iou_threshold,
+                                           cfg.detect.max_detections)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for backend in ("cuda", "pallas"):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            run_nms(boxes, scores, classes, valid, cfg, backend=backend)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_nms(boxes, scores, classes, valid, cfg, backend="matrix")
+    soft = config.dataclasses.replace(
+        cfg, detect=config.dataclasses.replace(cfg.detect, soft_nms_sigma=0.5))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_nms(boxes, scores, classes, valid, soft)
