@@ -1,25 +1,50 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper).
 
-Drives the port's serving path (RetinaNet R50-FPN at 512 px, full width,
-random weights from a seed) through ``serving.Predictor`` and checks it:
+Drives the port's two paths at full width with random weights from a seed:
+the serving path (RetinaNet R50-FPN at 512 px through ``serving.Predictor``)
+and the training path (the same model's ``train.make_train_step`` in bf16 at
+batch 16 with augmentation), and checks both:
 
   1. device and build: the card, its power limit, the CUDA kernels built
-     from ``shape_based_object_detection_torch/csrc`` (timed);
-  2. kernel vs plain: the greedy-NMS kernel against ``ops.nms.greedy_nms``
-     on the card at (B, N, M) = (16, 1000, 100), (16, 400, 200) and
-     (8, 2000, 100), with class-offset boxes, padding rows and tied scores;
-     idx, valid and the score bits must be equal;
+     from ``shape_based_object_detection_torch/csrc`` (one nvcc per source,
+     all started together; timed);
+  2. kernel vs plain: the greedy-NMS kernel (K1) against
+     ``ops.nms.greedy_nms`` on the card at (B, N, M) = (16, 1000, 100),
+     (16, 400, 200) and (8, 2000, 100), with class-offset boxes, padding
+     rows and tied scores; idx, valid and the score bits must be equal;
   3. forward on the card vs the CPU, float32 with TF32 off, one image, the
      same weights; then detect end to end on both, matched detection by
      detection;
   4. the serving path: a bf16 Predictor at batch 16 answers requests of
-     16, 5 and 1 images of differing sizes; the kernel must have launched
-     once per batch, and run_nms through the kernel must equal the plain
-     version on the same candidates; then a 16-image request end to end
-     on the host clock, and the host resize alone;
-  5. timing with CUDA events after warm-up (median and p90): detect
-     images/s at batch 16 in bf16 and float32, a stage breakdown, and the
-     kernel's time beside its bound and the plain version's time.
+     16, 5 and 1 images of differing sizes; K1 must have launched once per
+     batch, and run_nms through the kernel must equal the plain version on
+     the same candidates; then a 16-image request end to end on the host
+     clock, and the host resize alone;
+  5. serving timing with CUDA events after warm-up (median and p90): detect
+     images/s at batch 16 in bf16 and float32, a stage breakdown, and K1's
+     time beside its bound and the plain version's time;
+  6. the matching kernel (K2) against ``ops.matching.match_reductions_plain``
+     at (B, A, G) = (16, 49104, 64) (every GT the same box, 8 of 64 valid:
+     all ties), (16, 49104, 100) (random boxes, invalid rows, an image with
+     no valid GT, duplicate GTs) and (4, 76725, 100) with shape_weight 0.3;
+     assignments bit-equal, the full MatchResult after the epilogue equal;
+  7. a train step on the card vs the CPU: full-width R50-FPN-512, float32
+     with TF32 off in forward and backward, augment off, batch 2, the same
+     weights and batch; two steps (the first runs at warmup lr 0), loss and
+     grad_norm within 1e-4 relative, the parameter update within 5e-3 of its
+     norm and every parameter within 1e-6;
+  8. the training path: a bf16 trainer at batch 16 in the configuration
+     ``bench_train.py`` times (config4's training settings, max_boxes 64,
+     augmentation on) takes a few steps on a numpy-seeded batch of 1-64
+     boxes per image; K2 must launch once per step, the loss stay finite,
+     the parameters move from step 2 and stay float32 with their momentum;
+  9. training timing with CUDA events: train images/s at b16 bf16, a stage
+     breakdown (augment, forward+loss+backward, match_batch, optimizer
+     update; forward and forward+loss alone beside them), and K2's time
+     beside its bound and the plain version's time;
+ 10. a torch.profiler trace of three train steps: the device's busy time
+     per step, hence its idle share, the device time by operator, and the
+     host's time to enqueue a step.
 
 Prints its results, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -36,6 +61,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -47,6 +73,11 @@ FP32_FLOPS = 67e12
 # float ops per candidate per NMS step: 4 min/max, 2 sub, 2 clamp, 1 mul,
 # 2 add/sub, 1 clamp, 1 div, 1 compare (IoU and suppress), 1 argmax compare
 NMS_OPS_PER_ELEMENT = 15
+# float ops per (image, anchor, valid GT) of the matcher at shape_weight 0:
+# 4 min/max, 2 sub, 2 clamp, 1 mul (intersection), 1 add, 1 sub, 1 max,
+# 1 div (IoU), 1 compare (argmax over G), 1 compare (argmax over A), 1 select
+MATCH_OPS_PER_PAIR = 16
+KERNELS = ("nms_greedy", "match_anchors")
 
 
 def log(msg: str) -> None:
@@ -208,7 +239,7 @@ def serving_config(config, dtype):
     return dataclasses.replace(cfg, model=model)
 
 
-def phase_serving(torch, config, serving, nms_cuda, detection):
+def phase_serving(torch, config, serving, nms_cuda, detection, reset_counts):
     """The main path: a bf16 batch-16 Predictor answering three requests."""
     cfg = serving_config(config, "bfloat16")
     pred = serving.Predictor(cfg, batch_size=16, device="cuda",
@@ -221,7 +252,7 @@ def phase_serving(torch, config, serving, nms_cuda, detection):
                 for _ in range(count)]
 
     requests = [request(16), request(5), request(1)]
-    nms_cuda.launches = 0
+    reset_counts()
     answers = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     launches = nms_cuda.launches
@@ -339,6 +370,326 @@ def phase_timing(torch, config, build_model, make_detect_fn, detection, nms,
     return results
 
 
+def match_inputs(rng, b, g, kind):
+    """GT batches for the matcher: "ties" is bench_train.py's batch (every
+    GT the box [0.2, 0.2, 0.7, 0.7], 8 of G valid); "random" has boxes of
+    mixed sizes, invalid rows, image 1 with no valid GT and GT 1 a copy of
+    GT 0."""
+    if kind == "ties":
+        gt = np.tile(np.asarray([0.2, 0.2, 0.7, 0.7], np.float32), (b, g, 1))
+        valid = np.zeros((b, g), bool)
+        valid[:, :8] = True
+    else:
+        xy = rng.uniform(0.0, 0.9, (b, g, 2))
+        wh = np.exp(rng.uniform(np.log(0.01), np.log(0.8), (b, g, 2)))
+        gt = np.clip(np.concatenate([xy, xy + wh], -1), 0, 1).astype(np.float32)
+        gt[:, 1] = gt[:, 0]
+        valid = rng.uniform(size=(b, g)) < 0.7
+        valid[1] = False
+    labels = rng.integers(1, 81, (b, g)).astype(np.int32)
+    return gt, labels, valid
+
+
+def phase_match_kernel(torch, config, matching, matching_cuda, anchors_for_model):
+    """K2 vs plain on the card. Returns the worst |difference| over best_q
+    and reg (the assignments must be equal)."""
+    rng = np.random.default_rng(5)
+    r50 = config.get_config("retinanet_r50_fpn").model
+    r101 = config.get_config("retinanet_r101_fpn").model
+    worst = 0.0
+    for model, b, g, kind, sw in ((r50, 16, 64, "ties", 0.0), (r50, 16, 100, "random", 0.0),
+                                  (r101, 4, 100, "random", 0.3)):
+        anchors = anchors_for_model(model).cuda()
+        gt, labels, valid = (torch.from_numpy(x).cuda() for x in match_inputs(rng, b, g, kind))
+        variances = model.anchors.variances
+        before = matching_cuda.launches
+        got = matching_cuda.match_reductions_cuda(anchors, gt, labels, valid, sw, 1.0,
+                                                  variances)
+        torch.cuda.synchronize()
+        if matching_cuda.launches != before + 1:
+            raise RuntimeError("the matching kernel's launch counter did not advance")
+        want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, 1.0,
+                                               variances)
+        bq_bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        bq_ulp = int((got[0].view(torch.int32) - want[0].view(torch.int32)).abs().max())
+        assign = (torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+                  and torch.equal(got[2][valid], want[2][valid]))
+        reg_err = float((got[4] - want[4]).abs().max())
+        q_err = float((got[0] - want[0]).abs().max())
+        worst = max(worst, reg_err, q_err)
+        cfg = config.MatchConfig(pos_threshold=0.5, neg_threshold=0.4,
+                                 allow_low_quality=True, shape_weight=sw)
+        kern = matching.match_batch(anchors, gt, labels, valid,
+                                    dataclasses.replace(cfg, backend="cuda"), variances)
+        plain = matching.match_batch(anchors, gt, labels, valid,
+                                     dataclasses.replace(cfg, backend="plain"), variances)
+        result_equal = all(torch.equal(getattr(kern, f), getattr(plain, f)) for f in
+                           ("matched_gt_idx", "cls_targets", "positive", "quality"))
+        result_reg = float((kern.reg_targets - plain.reg_targets).abs().max())
+        log(f"[kernel] match_anchors (B, A, G)=({b}, {anchors.shape[0]}, {g}) {kind}, "
+            f"shape_weight {sw}: assignments equal={assign}, best_q bit-equal={bq_bits} "
+            f"(worst {bq_ulp} ulp, |err| {q_err:.3e}), reg max |err| {reg_err:.3e}; "
+            f"MatchResult after the epilogue equal={result_equal}, reg max |err| "
+            f"{result_reg:.3e}; positives {int(kern.positive.sum())}")
+        # exp enters best_q only at shape_weight > 0, log enters reg: a few
+        # ulp there; everything else to the bit
+        if not (assign and result_equal and (bq_bits or (sw > 0 and bq_ulp <= 4))
+                and reg_err <= 1e-5 * max(1.0, float(want[4].abs().max()))
+                and result_reg <= 1e-5 * max(1.0, float(plain.reg_targets.abs().max()))):
+            raise RuntimeError(f"match_anchors differs from the plain version at "
+                               f"({b}, {anchors.shape[0]}, {g}) {kind}")
+    return worst
+
+
+def train_config(config, dtype, batch, precision="default", **train_changes):
+    """config4's training settings (focal loss, 0.5/0.4 thresholds with
+    allow_low_quality, SGD lr 0.01 with warmup 500 and step decay, weight
+    decay 5e-4, clipping at 10) on R50-FPN-512, max_boxes 64, as
+    bench_train.py configures it."""
+    cfg = config.get_config("config4_retinanet_r101_coco_train")
+    model = dataclasses.replace(config.RETINANET_R50_512, dtype=dtype, precision=precision)
+    return dataclasses.replace(
+        cfg, model=model,
+        data=dataclasses.replace(cfg.data, batch_size=batch, max_boxes=64),
+        train=dataclasses.replace(cfg.train, **train_changes))
+
+
+def train_batch(rng, b, size=512, g=64):
+    """uint8 images and 1-64 valid GT boxes of mixed sizes per image."""
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    xy = rng.uniform(0.0, 0.85, (b, g, 2))
+    wh = np.exp(rng.uniform(np.log(0.02), np.log(0.8), (b, g, 2)))
+    boxes = np.clip(np.concatenate([xy, xy + wh], -1), 0, 1).astype(np.float32)
+    counts = rng.integers(1, g + 1, b)
+    valid = np.arange(g)[None] < counts[:, None]
+    boxes[~valid] = 0.0
+    labels = rng.integers(1, 81, (b, g)).astype(np.int32)
+    return {"images": images, "boxes": boxes, "labels": labels, "valid": valid}
+
+
+def phase_train_check(torch, config, train, build_model):
+    """Two train steps of full-width R50-FPN-512 in float32 with TF32 off,
+    augment off, batch 2: card vs CPU on the same weights and batch."""
+    # warmup 1: step 1 runs at lr 0, step 2 at the base lr
+    cfg = train_config(config, "float32", 2, precision="highest", warmup_steps=1,
+                       lr_decay_steps=(60_000, 80_000))
+    batch = train_batch(np.random.default_rng(6), 2)
+    models, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        module, anchors = build_model(cfg.model, device=dev, train=True,
+                                      generator=torch.Generator().manual_seed(7))
+        state = train.create_train_state(module, cfg, device=dev)
+        step = train.make_train_step(module, anchors, cfg, augment=False, device=dev)
+        start = {n: p.detach().clone() for n, p in module.named_parameters()}
+        t = time.perf_counter()
+        metrics[dev] = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+        models[dev] = (module, start, time.perf_counter() - t)
+    worst = {}
+    for i, (c, g) in enumerate(zip(metrics["cpu"], metrics["cuda"])):
+        for key in ("loss", "loss_cls", "loss_box", "grad_norm", "num_pos"):
+            rel = abs(g[key] - c[key]) / max(abs(c[key]), 1e-12)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if not (np.isfinite(g[key]) and rel <= 1e-4):
+                raise RuntimeError(f"train step {i + 1} {key}: card {g[key]} vs CPU {c[key]}")
+    cpu, cpu_start, cpu_s = models["cpu"]
+    gpu, _, gpu_s = models["cuda"]
+    num = den = 0.0
+    max_err = 0.0
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        pg = pg.detach().cpu()
+        dc = pc.detach() - cpu_start[name]
+        num += float(((pg - cpu_start[name]) - dc).square().sum())
+        den += float(dc.square().sum())
+        max_err = max(max_err, float((pg - pc.detach()).abs().max()))
+    update_rel = (num / den) ** 0.5
+    log(f"[train] R50-FPN-512 fp32 (TF32 off) train step card vs CPU, batch 2, 2 steps: "
+        f"loss {metrics['cuda'][-1]['loss']:.6f} vs {metrics['cpu'][-1]['loss']:.6f}, "
+        f"grad_norm {metrics['cuda'][-1]['grad_norm']:.6f} vs "
+        f"{metrics['cpu'][-1]['grad_norm']:.6f}; worst relative differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (bound 1e-4); parameter update |card - CPU| / |CPU| = {update_rel:.2e} "
+        f"(bound 5e-3), max |param err| {max_err:.2e} (bound 1e-6); host seconds: CPU "
+        f"{cpu_s:.1f}, card {gpu_s:.1f}")
+    # the update is lr * (g + wd * p): its small gradient entries are float32
+    # sums over up to 2 * 256 * 256 positions in another order, with
+    # cancellation, so the update's norm agrees less tightly than grad_norm
+    if not (den > 0 and update_rel <= 5e-3 and max_err <= 1e-6):
+        raise RuntimeError(f"parameter updates differ card vs CPU: {update_rel}")
+
+
+def phase_training(torch, config, train, build_model, matching_cuda, nms_cuda,
+                   reset_counts):
+    """The training path: bf16 b16 steps with augmentation through
+    make_train_step. Returns (state, step, module, anchors, cfg, batch,
+    K2 launches)."""
+    cfg = train_config(config, "bfloat16", 16)
+    module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                  generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(module, cfg)
+    step = train.make_train_step(module, anchors, cfg)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(np.random.default_rng(8), 16).items()}
+    params = list(module.parameters())
+    snaps, losses = [[p.detach().clone() for p in params]], []
+    steps = 4
+    reset_counts()
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if len(snaps) < 3:
+            snaps.append([p.detach().clone() for p in params])
+    torch.cuda.synchronize()
+    launches = matching_cuda.launches
+    if launches != steps:
+        raise RuntimeError(f"the matching kernel ran {launches} times in {steps} steps")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    same_1 = all(torch.equal(a, b) for a, b in zip(snaps[0], snaps[1]))
+    moved_2 = max(float((a - b).abs().max()) for a, b in zip(snaps[1], snaps[2]))
+    if not same_1 or moved_2 <= 0.0:
+        raise RuntimeError("parameters must stay at step 1 (lr 0) and move at step 2")
+    dtypes = ({p.dtype for p in params} | {t.dtype for t in state.opt_state.trace})
+    if dtypes != {torch.float32}:
+        raise RuntimeError(f"weights or momentum are not float32: {dtypes}")
+    log(f"[train] bf16 R50-FPN-512 trainer b16, augmentation on, {steps} steps: losses "
+        f"{[round(x, 5) for x in losses]}, matching kernel launches {launches}, NMS "
+        f"kernel launches {nms_cuda.launches}; parameters unchanged at step 1 (lr 0), "
+        f"moved by up to {moved_2:.3e} at step 2; weights and momentum float32")
+    return state, step, module, anchors, cfg, batch, launches
+
+
+def phase_train_timing(torch, train, matching, matching_cuda, state, step, module,
+                       anchors, cfg, batch):
+    from shape_based_object_detection_torch.data.augment import augment_batch
+    from shape_based_object_detection_torch.losses import detection_loss
+    from shape_based_object_detection_torch.models.retinanet import conv_precision
+
+    results = {}
+    times = cuda_times_ms(lambda: step(state, batch), iters=20)
+    ms = float(np.median(times))
+    results["train_b16_bf16_images_per_s"] = 16 * 1000.0 / ms
+    results["train_b16_bf16_step_median_ms"] = ms
+    log(f"[timing] train step b16 bf16 (augment, forward, match, loss, backward, "
+        f"SGD): {spread(times)} per step, {16 * 1000.0 / ms:.1f} images/s at the median")
+
+    images, boxes, labels, valid = (batch[k] for k in ("images", "boxes", "labels", "valid"))
+    aug = augment_batch(state.generator, images, boxes, labels, valid, cfg.data,
+                        cfg.model.image_size)
+    x = aug[0].permute(0, 3, 1, 2)
+    variances = cfg.model.anchors.variances
+    match = matching.match_batch(anchors, aug[1], aug[2], aug[3], cfg.match, variances)
+    params = list(module.parameters())
+    opt = train.make_optimizer(cfg.train)
+    mask = list(train.decay_mask(module).values())
+
+    def forward(loss=False, backward=False):
+        for p in params:
+            p.grad = None
+        with conv_precision(cfg.model.precision):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = module(x)
+            if loss or backward:
+                out, _ = detection_loss(*out, match, cfg.loss)
+            if backward:
+                out.backward()
+
+    def fwd_bwd():
+        forward(backward=True)
+
+    fwd_bwd()
+    grads = [p.grad for p in params]
+    data = [p.data for p in params]
+    stages = {
+        "augment": lambda: augment_batch(state.generator, images, boxes, labels, valid,
+                                         cfg.data, cfg.model.image_size),
+        "forward": forward,
+        "forward+loss": lambda: forward(loss=True),
+        "forward+loss+backward": fwd_bwd,
+        "match_batch": lambda: matching.match_batch(anchors, aug[1], aug[2], aug[3],
+                                                    cfg.match, variances),
+        "optimizer": lambda: opt.apply(state.opt_state, data, grads, mask),
+    }
+    parts = {k: float(np.median(cuda_times_ms(f, iters=10))) for k, f in stages.items()}
+    results["train_b16_bf16_stage_median_ms"] = parts
+    step_parts = ("augment", "forward+loss+backward", "match_batch", "optimizer")
+    log("[timing] train b16 bf16 stages (median ms; the forward stages record the "
+        "autograd graph and take the matches as given): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum of {', '.join(step_parts)} {sum(parts[k] for k in step_parts):.3f} "
+        f"vs step {ms:.3f}")
+
+    # K2 on the path's own augmented batch, then on bench_train.py's batch
+    entry = None
+    for name, (gt, lbl, ok) in (
+            ("the path's augmented batch", aug[1:4]),
+            ("bench_train.py's batch (8 of 64 GTs valid, all one box)",
+             (torch.from_numpy(x).cuda()
+              for x in match_inputs(np.random.default_rng(9), 16, 64, "ties")))):
+        gt, lbl, ok = gt.contiguous(), lbl.contiguous(), ok.contiguous()
+        args = (anchors, gt, lbl, ok, cfg.match.shape_weight, cfg.match.shape_tau, variances)
+        k_times = cuda_times_ms(lambda: matching_cuda.match_reductions_cuda(*args), iters=100)
+        p_times = cuda_times_ms(lambda: matching.match_reductions_plain(*args), iters=10)
+        b, g = ok.shape
+        a = anchors.shape[0]
+        # the data needs the IoU of every anchor with every valid GT; an
+        # invalid row needs no arithmetic (its quality is -1)
+        ops = a * int(ok.sum()) * MATCH_OPS_PER_PAIR
+        nbytes = a * 16 + b * g * (16 + 4 + 1) + b * a * (4 + 4 + 4 + 16) + b * g * 4
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
+        log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name}: kernel "
+            f"{spread(k_times)}; plain {spread(p_times)}; bound {bound_ms:.5f} ms "
+            f"({bound_by}: {nbytes} bytes, {ops} ops over {int(ok.sum())} valid GTs), "
+            f"library call: none (no PyTorch op computes the matching)")
+        if entry is None:
+            entry = dict(ms=float(np.median(k_times)), plain_ms=float(np.median(p_times)),
+                         bound_ms=bound_ms, bound_by=bound_by)
+    results["match"] = entry
+    return results
+
+
+def phase_train_profile(torch, state, step, batch, step_ms):
+    """Where the train step's device time goes: a torch.profiler trace of
+    3 steps (kernel time by operator), the device's busy time per step
+    against the step's CUDA-event time (the idle share), and the host's
+    time to enqueue a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch)
+        enqueue.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy <= 0.0:  # a profiler without CUPTI records no kernels
+        log("[profile] train step: device busy time not measured (the profiler "
+            "recorded no kernels)")
+        return {}
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    idle = 1.0 - busy / step_ms
+    log(f"[profile] train step b16 bf16: device busy {busy:.3f} ms per step (sum of "
+        f"{len(kernels) // n} kernels under torch.profiler) vs the step's {step_ms:.3f} ms "
+        f"(CUDA events, unprofiled): idle share {idle:.3f}; host enqueue of a step "
+        f"(no sync) median {np.median(enqueue):.3f} ms of {len(enqueue)}; device ms per "
+        f"step by operator: " + ", ".join(
+            f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ({e.count // n})"
+            for e in ops))
+    return {"train_b16_bf16_device_busy_ms": busy, "train_b16_bf16_idle_share": idle,
+            "train_b16_bf16_host_enqueue_median_ms": float(np.median(enqueue))}
+
+
 def main() -> int:
     import torch
 
@@ -346,10 +697,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from shape_based_object_detection_torch import config, detection, serving
+    from shape_based_object_detection_torch import config, detection, serving, train
     from shape_based_object_detection_torch.detection import make_detect_fn
     from shape_based_object_detection_torch.models.factory import build_model
-    from shape_based_object_detection_torch.ops import nms, nms_cuda
+    from shape_based_object_detection_torch.ops import matching, matching_cuda, nms, nms_cuda
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
     from shape_based_object_detection_torch.utils import native
 
     t0 = time.perf_counter()
@@ -357,28 +709,60 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     t = time.perf_counter()
-    native.load("nms_greedy")
-    log(f"[build] nms_greedy.cu built and loaded in {time.perf_counter() - t:.2f} s")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        list(pool.map(native.build, KERNELS))
+    for name in KERNELS:
+        native.load(name)
+    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in parallel and loaded "
+        f"in {time.perf_counter() - t:.2f} s")
 
-    max_abs_err = phase_kernel(torch, nms, nms_cuda)
+    def reset_counts():
+        """Every kernel's launch count to 0, just before a path is driven."""
+        nms_cuda.launches = 0
+        matching_cuda.launches = 0
+
+    nms_err = phase_kernel(torch, nms, nms_cuda)
     phase_forward(torch, config, build_model, make_detect_fn)
-    launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection)
+    nms_launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection,
+                                      reset_counts)
     timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
                           nms, nms_cuda)
+    match_err = phase_match_kernel(torch, config, matching, matching_cuda,
+                                   anchors_for_model)
+    phase_train_check(torch, config, train, build_model)
+    trained = phase_training(torch, config, train, build_model, matching_cuda, nms_cuda,
+                             reset_counts)
+    match_launches = trained[-1]
+    train_timing = phase_train_timing(torch, train, matching, matching_cuda,
+                                      *trained[:-1])
+    train_timing.update(phase_train_profile(
+        torch, trained[0], trained[1], trained[5],
+        train_timing["train_b16_bf16_step_median_ms"]))
 
-    log(json.dumps({**e2e, **{k: v for k, v in timing.items() if k != "nms"}}))
-    kernel = {
+    log(json.dumps({**e2e, **{k: v for k, v in timing.items() if k != "nms"},
+                    **{k: v for k, v in train_timing.items() if k != "match"}}))
+    kernels = [{
         "name": "nms_greedy",
         "route": "cuda",
         "source": "shape_based_object_detection_torch/csrc/nms_greedy.cu",
         "replaces": "shape_based_object_detection_tpu/ops/nms_pallas.py:33",
-        "launches": launches,
+        "launches": nms_launches,  # the serving path's
         "bit_equal": True,  # phase_kernel raises on any differing bit
-        "max_abs_err": max_abs_err,
+        "max_abs_err": nms_err,
         **timing["nms"],
         "library_ms": None,
-    }
-    log(json.dumps({"kernels": [kernel]}))
+    }, {
+        "name": "match_anchors",
+        "route": "cuda",
+        "source": "shape_based_object_detection_torch/csrc/match_anchors.cu",
+        "replaces": "shape_based_object_detection_tpu/ops/matching_pallas.py:72",
+        "launches": match_launches,  # the training path's
+        "bit_equal": True,  # assignments; phase_match_kernel raises otherwise
+        "max_abs_err": match_err,
+        **train_timing["match"],
+        "library_ms": None,
+    }]
+    log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -79,11 +79,14 @@ def build_model(
     cfg_or_name: Union[ModelConfig, str],
     device=None,
     generator: torch.Generator | None = None,
+    train: bool = False,
 ) -> Tuple[nn.Module, torch.Tensor]:
     """Returns ``(module, anchors_cxcywh)`` on ``device`` (default: the
     card; raises without one unless ``device="cpu"``). Weights are drawn on
     the CPU from ``generator`` (default: seed 0), so they do not depend on
-    the device."""
+    the device. ``train=True`` keeps every parameter float32 for the
+    optimizer (a bf16 model then computes in bf16 under autocast, see
+    ``train.py``); otherwise a bf16 model's conv weights are stored bf16."""
     cfg = (config_lib.get_config(cfg_or_name).model
            if isinstance(cfg_or_name, str) else cfg_or_name)
     dev = resolve_device(device)
@@ -98,7 +101,7 @@ def build_model(
             f"anchor/head mismatch: {anchors.shape[0]} anchors vs {num_pred} "
             "predictions")
     module = module.to(dev).eval()
-    if cfg.dtype == "bfloat16":
+    if cfg.dtype == "bfloat16" and not train:
         # convolutions compute in bf16; BatchNorm statistics stay float32,
         # as the reference keeps its parameters
         for m in module.modules():

@@ -1,1 +1,2 @@
-"""Box, anchor and NMS ops; ``nms_cuda`` holds the CUDA kernel's wrapper."""
+"""Box, anchor, NMS and matching ops; ``nms_cuda`` and ``matching_cuda``
+hold the CUDA kernels' wrappers."""

@@ -34,6 +34,59 @@ def box_area(boxes_xyxy: torch.Tensor) -> torch.Tensor:
     return w * h
 
 
+def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x / divisor`` rounded as a true division. PyTorch's CUDA kernels
+    turn a division by a Python number into a product with its reciprocal,
+    which can differ in the last bit; a 0-d tensor on ``x``'s device keeps
+    the division, so the card and the CPU round alike (``torch.full`` makes
+    it on the device: no copy from the host, no synchronisation)."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
+def pairwise_intersection(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
+    """Intersection areas of every pair: (..., N, 4) x (..., M, 4) -> (..., N, M)."""
+    lt = torch.maximum(a_xyxy[..., :, None, :2], b_xyxy[..., None, :, :2])
+    rb = torch.minimum(a_xyxy[..., :, None, 2:], b_xyxy[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    return wh[..., 0] * wh[..., 1]
+
+
+def iou_matrix(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
+    """Jaccard overlap of every pair: (..., N, 4) x (..., M, 4) -> (..., N, M),
+    as ``inter / max(area_a + area_b - inter, 1e-8)``."""
+    inter = pairwise_intersection(a_xyxy, b_xyxy)
+    area_a = box_area(a_xyxy)[..., :, None]
+    area_b = box_area(b_xyxy)[..., None, :]
+    union = area_a + area_b - inter
+    return inter / union.clamp(min=_EPS)
+
+
+def encode_boxes(gt_cxcywh: torch.Tensor, anchors_cxcywh: torch.Tensor,
+                 variances=(0.1, 0.2)) -> torch.Tensor:
+    """GT boxes -> regression offsets against the anchors, (..., 4):
+    ``(g - a) / (max(a_wh, eps) * vc)`` and ``log(max(g_wh, eps) /
+    max(a_wh, eps)) / vs``."""
+    vc, vs = variances
+    g_cxcy, g_wh = gt_cxcywh[..., :2], gt_cxcywh[..., 2:]
+    a_cxcy, a_wh = anchors_cxcywh[..., :2], anchors_cxcywh[..., 2:]
+    a_wh = a_wh.clamp(min=_EPS)
+    t_cxcy = (g_cxcy - a_cxcy) / (a_wh * vc)
+    t_wh = true_div(torch.log(g_wh.clamp(min=_EPS) / a_wh), vs)
+    return torch.cat([t_cxcy, t_wh], dim=-1)
+
+
+def shape_similarity(a_cxcywh: torch.Tensor, b_cxcywh: torch.Tensor,
+                     tau: float = 1.0) -> torch.Tensor:
+    """Pairwise shape similarity in (0, 1]: (..., N, 4) x (..., M, 4) ->
+    (..., N, M), ``exp(-(|log(w_a/w_b)| + |log(h_a/h_b)|) / tau)`` with the
+    logs taken of each box's own extents."""
+    log_wh_a = torch.log(a_cxcywh[..., 2:].clamp(min=_EPS))
+    log_wh_b = torch.log(b_cxcywh[..., 2:].clamp(min=_EPS))
+    diff = (log_wh_a[..., :, None, :] - log_wh_b[..., None, :, :]).abs()
+    d = diff[..., 0] + diff[..., 1]
+    return torch.exp(true_div(-d, tau))
+
+
 def decode_boxes(offsets: torch.Tensor, anchors_cxcywh: torch.Tensor,
                  variances=(0.1, 0.2)) -> torch.Tensor:
     """Regression offsets -> boxes in cxcywh, as ``a + (o*vc)*a_wh`` and

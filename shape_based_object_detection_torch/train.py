@@ -1,0 +1,377 @@
+"""Training step (port of the JAX package's ``train.py``).
+
+``train_step(state, batch)`` is the whole hot path: augmentation on the
+device -> forward -> matching (the CUDA kernel ``csrc/match_anchors.cu`` on
+the card) -> loss -> backward -> optimizer update, all queued on the device
+with no synchronisation with the host. The optimizer is the reference's
+optax chain written out with PyTorch's multi-tensor (``_foreach``) ops:
+global-norm clipping, weight decay on conv kernels only, SGD with momentum
+(or AdamW) under a linear warmup and step decay at global steps, optionally
+averaged over micro-batches (optax ``MultiSteps``), and an EMA of the
+parameters counted per applied update.
+
+Mixed precision follows the reference: parameters and optimizer state stay
+float32, and with ``model.dtype == "bfloat16"`` the forward computes in bf16
+under ``torch.autocast``. ``model.precision`` sets cuDNN's TF32 switch for
+the forward *and* the backward convolutions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from shape_based_object_detection_torch.config import ExperimentConfig, TrainConfig
+from shape_based_object_detection_torch.data.augment import augment_batch
+from shape_based_object_detection_torch.losses import detection_loss
+from shape_based_object_detection_torch.models.retinanet import conv_precision
+from shape_based_object_detection_torch.ops.boxes import true_div
+from shape_based_object_detection_torch.ops.matching import match_batch
+from shape_based_object_detection_torch.utils import image as image_lib
+from shape_based_object_detection_torch.utils.device import resolve_device
+
+Batch = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Learning-rate schedule, weight-decay mask, optimizer
+# ---------------------------------------------------------------------------
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Linear warmup from 0, then piecewise-constant decay. ``lr_decay_steps``
+    are GLOBAL step numbers (the reference shifts them by the warmup inside
+    optax's ``join_schedules``). Computed in float32 in optax's order."""
+    warmup = max(1, cfg.warmup_steps)
+    bad = [int(s) for s in cfg.lr_decay_steps if int(s) <= warmup]
+    if bad:
+        raise ValueError(
+            f"lr_decay_steps {bad} fall at or before warmup_steps={warmup}; "
+            "decay boundaries are GLOBAL step numbers and must be greater "
+            "than the warmup length")
+    f32 = np.float32
+    base = f32(cfg.base_lr)
+    bounds = sorted((int(s) - warmup, f32(cfg.lr_decay_factor))
+                    for s in cfg.lr_decay_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            frac = f32(1.0) - f32(min(max(count, 0), warmup)) / f32(warmup)
+            return float(f32(0.0 - cfg.base_lr) * frac + base)
+        value, n = base, count - warmup
+        for boundary, scale in bounds:
+            on = f32(1.0) if boundary - n > 0 else f32(0.0)
+            value = value * on + (f32(1.0) - on) * scale * value
+        return float(value)
+
+    return schedule
+
+
+def decay_mask(module: nn.Module) -> Dict[str, bool]:
+    """True for convolution kernels only (the reference's flax ``kernel``
+    leaves with ndim >= 2): conv biases and the BatchNorm scale and shift
+    get no weight decay."""
+    return {name: name.rsplit(".", 1)[-1] == "weight" and p.dim() >= 2
+            for name, p in module.named_parameters()}
+
+
+@dataclasses.dataclass
+class OptState:
+    """The optimizer's state. ``count`` counts applied updates (optax's
+    schedule count), ``mini_step`` the micro-batches since the last one."""
+
+    count: int = 0
+    mini_step: int = 0
+    trace: Optional[List[torch.Tensor]] = None  # SGD momentum
+    mu: Optional[List[torch.Tensor]] = None  # AdamW moments
+    nu: Optional[List[torch.Tensor]] = None
+    acc: Optional[List[torch.Tensor]] = None  # mean of the micro-gradients
+
+
+class Optimizer:
+    """optax ``chain(clip_by_global_norm, add_decayed_weights(mask), sgd)``
+    or ``chain(clip_by_global_norm, adamw(mask))``, wrapped in ``MultiSteps``
+    when ``grad_accum_steps > 1``. Updates the parameters in place."""
+
+    def __init__(self, cfg: TrainConfig):
+        if cfg.optimizer not in ("sgd", "adamw"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        self.cfg = cfg
+        self.schedule = make_lr_schedule(cfg)
+        self.accum = max(1, cfg.grad_accum_steps)
+        self.trace_dtype = (getattr(torch, cfg.momentum_dtype)
+                            if cfg.momentum_dtype else None)
+
+    def init(self, params: List[torch.Tensor]) -> OptState:
+        zeros = lambda dtype=None: [torch.zeros_like(p, dtype=dtype) for p in params]
+        state = OptState()
+        if self.cfg.optimizer == "sgd":
+            state.trace = zeros(self.trace_dtype)
+        else:
+            state.mu, state.nu = zeros(), zeros()
+        if self.accum > 1:
+            state.acc = zeros()
+        return state
+
+    @torch.no_grad()
+    def apply(self, state: OptState, params: List[torch.Tensor],
+              grads: List[torch.Tensor], mask: List[bool]) -> bool:
+        """One call per micro-batch; returns whether the parameters moved.
+        ``grads`` may be overwritten."""
+        if self.accum > 1:
+            n = state.mini_step
+            # acc + (g - acc) / (n + 1), the running mean of MultiSteps
+            delta = torch._foreach_sub(grads, state.acc)
+            delta = [true_div(d, n + 1) for d in delta]
+            torch._foreach_add_(state.acc, delta)
+            state.mini_step = (n + 1) % self.accum
+            if state.mini_step != 0:
+                return False
+            grads = [a.clone() for a in state.acc]
+            for a in state.acc:
+                a.zero_()
+        self._clip(grads)
+        lr = self.schedule(state.count)
+        cfg = self.cfg
+        decayed = [i for i, m in enumerate(mask) if m]
+        if cfg.optimizer == "sgd":
+            if cfg.weight_decay:
+                torch._foreach_add_([grads[i] for i in decayed],
+                                    [params[i] for i in decayed],
+                                    alpha=cfg.weight_decay)
+            if self.trace_dtype in (None, params[0].dtype):
+                torch._foreach_mul_(state.trace, cfg.momentum)
+                torch._foreach_add_(state.trace, grads)
+                updates = state.trace
+            else:
+                # the trace is stored in another type: as optax's
+                # accumulator_dtype, momentum * trace is taken in that type
+                # (the momentum rounded to it too) and the update uses the
+                # float32 sum before it is cast back
+                m = float(torch.tensor(cfg.momentum, dtype=self.trace_dtype))
+                updates = [g + t * m for g, t in zip(grads, state.trace)]
+                state.trace = [u.to(self.trace_dtype) for u in updates]
+        else:
+            updates = self._adam(state, grads)
+            if cfg.weight_decay:
+                torch._foreach_add_([updates[i] for i in decayed],
+                                    [params[i] for i in decayed],
+                                    alpha=cfg.weight_decay)
+        torch._foreach_add_(params, updates, alpha=-lr)
+        state.count += 1
+        return True
+
+    def _clip(self, grads: List[torch.Tensor]) -> None:
+        """optax.clip_by_global_norm: ``g / norm * max_norm`` when ``norm >=
+        max_norm`` (no epsilon), unchanged below; decided on the device."""
+        norm = global_norm(grads)
+        below = norm < self.cfg.grad_clip_norm
+        torch._foreach_div_(grads, torch.where(below, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(below, 1.0, self.cfg.grad_clip_norm))
+
+    def _adam(self, state: OptState, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8)."""
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        f32, count = np.float32, np.float32(state.count + 1)
+        c1 = float(f32(1) - f32(b1) ** count)  # bias corrections, in float32
+        c2 = float(f32(1) - f32(b2) ** count)
+        out = []
+        for g, m, v in zip(grads, state.mu, state.nu):
+            m.copy_((1 - b1) * g + b1 * m)
+            v.copy_((1 - b2) * (g * g) + b2 * v)
+            out.append(true_div(m, c1) / (torch.sqrt(true_div(v, c2)) + eps))
+        return out
+
+
+def make_optimizer(cfg: TrainConfig) -> Optimizer:
+    return Optimizer(cfg)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as a 0-d tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+# ---------------------------------------------------------------------------
+# State, loss, step
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    module: nn.Module  # the trainable parameters (float32) and frozen BN
+    opt_state: OptState
+    generator: torch.Generator  # on the module's device; the augmentation's
+    ema: Optional[Dict[str, torch.Tensor]] = None  # EMA of the parameters
+
+
+def _roadmap_guards(cfg: ExperimentConfig) -> None:
+    if cfg.model.train_bn:
+        raise NotImplementedError(
+            "train_bn=True (trainable BatchNorm with flax's biased batch "
+            "variance) is not ported yet (ROADMAP.md, modules still to port, "
+            "item 8)")
+    if cfg.model.remat or cfg.train.remat:
+        raise NotImplementedError(
+            "remat (torch.utils.checkpoint) is not ported yet (ROADMAP.md, "
+            "modules still to port, item 8)")
+
+
+def _on_device(module: nn.Module, anchors: Optional[torch.Tensor], device):
+    dev = resolve_device(device)
+    param = next(module.parameters())
+    if param.device != dev or (anchors is not None and anchors.device != dev):
+        raise ValueError(
+            f"training on {dev} needs the module and anchors there; they are "
+            f"on {param.device} and {None if anchors is None else anchors.device}")
+    return dev
+
+
+def create_train_state(module: nn.Module, cfg: ExperimentConfig, device=None,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
+    """The state for training ``module`` (from ``build_model(...,
+    train=True)``) in place. ``device`` as ``build_model``'s: the card
+    unless ``device="cpu"``. The augmentation's generator is seeded with
+    ``cfg.train.seed`` on that device unless one is given."""
+    _roadmap_guards(cfg)
+    dev = _on_device(module, None, device)
+    not_f32 = [n for n, p in module.named_parameters() if p.dtype != torch.float32]
+    if not_f32:
+        raise ValueError(
+            f"training needs float32 parameters (bf16 compute runs under "
+            f"autocast); {not_f32[0]} is not: build the model with train=True")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    params = list(module.parameters())
+    ema = ({n: p.detach().clone() for n, p in module.named_parameters()}
+           if cfg.train.ema_decay > 0 else None)
+    return TrainState(step=0, module=module,
+                      opt_state=make_optimizer(cfg.train).init(params),
+                      generator=generator, ema=ema)
+
+
+def _autocast(cfg: ExperimentConfig, device: torch.device):
+    return torch.autocast(device.type, dtype=torch.bfloat16,
+                          enabled=cfg.model.dtype == "bfloat16")
+
+
+def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig):
+    """``loss_fn(images_nchw, boxes, labels, valid) -> (loss, metrics)``,
+    the differentiable core of the train step."""
+    _roadmap_guards(cfg)
+    variances = cfg.model.anchors.variances
+    device = anchors.device
+
+    def loss_fn(images, boxes, labels, valid):
+        with _autocast(cfg, device):
+            cls_logits, box_offsets = module(images)
+        with torch.no_grad():
+            match = match_batch(anchors, boxes, labels, valid, cfg.match, variances)
+        return detection_loss(cls_logits.float(), box_offsets.float(), match,
+                              cfg.loss)
+
+    return loss_fn
+
+
+def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
+                     cfg: ExperimentConfig, state: TrainState, images, boxes,
+                     labels, valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """forward + backward -> optimizer -> EMA: the shared tail of the step."""
+    params = list(state.module.parameters())
+    for p in params:
+        p.grad = None
+    # TF32 for the backward convolutions too, which run after forward returns
+    with conv_precision(cfg.model.precision):
+        loss, metrics = loss_fn(images, boxes, labels, valid)
+        loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = global_norm(grads)
+    applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
+    d = cfg.train.ema_decay
+    if d > 0 and applied:
+        # EMA follows optimizer updates, not micro-batches
+        ema = list(state.ema.values())
+        with torch.no_grad():
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
+    for p in params:
+        p.grad = None
+    state.step += 1
+    return state, metrics
+
+
+def _batch_on(batch: Batch, dev: torch.device):
+    return tuple(torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                 for k in ("images", "boxes", "labels", "valid"))
+
+
+def make_train_step(module: nn.Module, anchors: torch.Tensor,
+                    cfg: ExperimentConfig, augment: bool = True, device=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch``: images (B, S, S, 3) uint8, boxes (B, G, 4) normalized xyxy,
+    labels (B, G) int32 (1-based), valid (B, G) bool; tensors already on the
+    device are used in place. The state is updated in place and returned;
+    the metrics are 0-d tensors on the device (reading one waits for the
+    step)."""
+    _roadmap_guards(cfg)
+    dev = _on_device(module, anchors, device)
+    opt = make_optimizer(cfg.train)
+    loss_fn = make_loss_fn(module, anchors, cfg)
+    mask = list(decay_mask(module).values())
+
+    def train_step(state: TrainState, batch: Batch):
+        images, boxes, labels, valid = _batch_on(batch, dev)
+        if augment:
+            images, boxes, labels, valid = augment_batch(
+                state.generator, images, boxes, labels, valid, cfg.data,
+                cfg.model.image_size)
+        else:
+            images = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
+        x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+        return _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
+                                labels, valid)
+
+    return train_step
+
+
+def make_train_step_pipelined(module, anchors, cfg: ExperimentConfig):
+    raise NotImplementedError(
+        "the pipelined train step (augment of batch i+1 inside step i) is not "
+        "ported yet (ROADMAP.md, modules still to port, item 8)")
+
+
+def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
+                   use_ema: bool = False, device=None):
+    """Returns ``eval_step(state, images) -> Detections``: forward with the
+    state's parameters (or its EMA) and postprocess, for validation."""
+    from shape_based_object_detection_torch.detection import postprocess
+
+    dev = _on_device(module, anchors, device)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images):
+        if use_ema and state.ema is None:
+            raise ValueError(
+                "use_ema=True but this TrainState has no EMA parameters: train "
+                "with TrainConfig.ema_decay > 0")
+        x = torch.as_tensor(images).to(dev, non_blocking=True)
+        x = image_lib.normalize_images(x, cfg.data.mean, cfg.data.std)
+        x = x.permute(0, 3, 1, 2)
+        with conv_precision(cfg.model.precision), _autocast(cfg, dev):
+            if use_ema:
+                weights = {**dict(state.module.named_buffers()), **state.ema}
+                cls_logits, box_offsets = torch.func.functional_call(
+                    state.module, weights, (x,))
+            else:
+                cls_logits, box_offsets = state.module(x)
+        return postprocess(cls_logits.float(), box_offsets.float(), anchors,
+                           cfg.model)
+
+    return eval_step

@@ -5,6 +5,8 @@ raise; they never carry on quietly on the CPU."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,11 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:  # "cuda" means the current card, by index
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor on ``device``, made once per process: a copy
+    from the host to the card waits for the stream it is made on, so a hot
+    path takes its constants from here. Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from shape_based_object_detection_torch.utils.device import constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -24,8 +26,8 @@ def normalize_images(
     x = images.to(torch.float32)
     if images.dtype == torch.uint8:
         x = x / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    s = torch.tensor(std, dtype=torch.float32, device=images.device)
+    m = constant(tuple(mean), torch.float32, images.device)
+    s = constant(tuple(std), torch.float32, images.device)
     return (x - m) / s
 
 

@@ -67,3 +67,85 @@ def test_nms_kernel_takes_strided_and_refuses_oversized_inputs():
     big = torch.zeros(1, 20000, 4, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
+
+
+def _match_case(seed, b, a, g):
+    rng = np.random.default_rng(seed)
+    anchors = np.concatenate([rng.uniform(0.05, 0.95, (a, 2)),
+                              rng.uniform(0.01, 0.6, (a, 2))], 1).astype(np.float32)
+    xy = rng.uniform(0, 0.8, (b, g, 2))
+    gt = np.clip(np.concatenate([xy, xy + rng.uniform(0.01, 0.5, (b, g, 2))], -1),
+                 0, 1).astype(np.float32)
+    if g > 1:
+        gt[:, 1] = gt[:, 0]  # duplicate GTs
+    labels = rng.integers(1, 81, (b, g)).astype(np.int32)
+    valid = rng.uniform(size=(b, g)) < 0.7
+    valid[0] = False  # an image with no valid GT
+    return [torch.from_numpy(x).cuda() for x in (anchors, gt, labels, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,a,g,sw", [(4, 5000, 64, 0.0), (3, 3001, 100, 0.3),
+                                      (2, 257, 1, 0.0)])
+def test_match_kernel_equals_plain(b, a, g, sw):
+    """Assignments and qualities bit-equal at shape_weight 0; at 0.3 the
+    quality within 4 ulp (expf/logf); one launch."""
+    _cuda()
+    import dataclasses
+
+    from shape_based_object_detection_torch.config import MatchConfig
+    from shape_based_object_detection_torch.ops import matching, matching_cuda
+
+    anchors, gt, labels, valid = _match_case(b * a + g, b, a, g)
+    before = matching_cuda.launches
+    got = matching_cuda.match_reductions_cuda(anchors, gt, labels, valid, sw, 1.0,
+                                              (0.1, 0.2))
+    want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, 1.0,
+                                           (0.1, 0.2))
+    assert matching_cuda.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[2][valid], want[2][valid])
+    if sw == 0.0:
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=4 * 2 ** -23, atol=0)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=1e-6)
+    cfg = MatchConfig(pos_threshold=0.5, neg_threshold=0.4, allow_low_quality=True,
+                      shape_weight=sw)
+    kern = matching.match_batch(anchors, gt, labels, valid,
+                                dataclasses.replace(cfg, backend="cuda"))
+    plain = matching.match_batch(anchors, gt, labels, valid,
+                                 dataclasses.replace(cfg, backend="plain"))
+    for field in ("matched_gt_idx", "cls_targets", "positive"):
+        assert torch.equal(getattr(kern, field), getattr(plain, field)), field
+    torch.testing.assert_close(kern.reg_targets, plain.reg_targets, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_the_card():
+    """One bf16 train step of the tiny RetinaNet with augmentation: finite
+    loss, float32 parameters and momentum, the matching kernel launched."""
+    _cuda()
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    cfg = config.get_config("tiny_retinanet")
+    cfg = config.dataclasses.replace(
+        cfg, model=config.dataclasses.replace(cfg.model, dtype="bfloat16"))
+    module, anchors = build_model(cfg.model, train=True)
+    state = train.create_train_state(module, cfg)
+    step = train.make_train_step(module, anchors, cfg)
+    rng = np.random.default_rng(0)
+    s, g = cfg.model.image_size, cfg.data.max_boxes
+    xy = rng.uniform(0, 0.6, (2, g, 2))
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (2, s, s, 3), dtype=np.uint8)),
+             "boxes": torch.from_numpy(np.concatenate([xy, xy + 0.3], -1).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(1, 5, (2, g)).astype(np.int32)),
+             "valid": torch.ones(2, g, dtype=torch.bool)}
+    before = matching_cuda.launches
+    state, metrics = step(state, batch)
+    assert matching_cuda.launches == before + 1
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert all(p.dtype == torch.float32 for p in module.parameters())
+    assert all(t.dtype == torch.float32 for t in state.opt_state.trace)

@@ -127,3 +127,75 @@ def test_run_nms_routes_by_device_and_backend():
         cfg, detect=config.dataclasses.replace(cfg.detect, soft_nms_sigma=0.5))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_nms(boxes, scores, classes, valid, soft)
+
+
+def _match_inputs():
+    rng = np.random.default_rng(0)
+    anchors = torch.from_numpy(np.concatenate(
+        [rng.uniform(0.2, 0.8, (50, 2)), rng.uniform(0.05, 0.4, (50, 2))], 1)
+        .astype(np.float32))
+    xy = rng.uniform(0, 0.5, (2, 6, 2))
+    gt = torch.from_numpy(np.concatenate([xy, xy + 0.3], -1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(1, 4, (2, 6)).astype(np.int32))
+    valid = torch.ones(2, 6, dtype=torch.bool)
+    return anchors, gt, labels, valid
+
+
+def test_matching_wrapper_refuses_cpu_tensors():
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    before = matching_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        matching_cuda.match_reductions_cuda(*_match_inputs())
+    assert matching_cuda.launches == before
+
+
+def test_match_batch_routes_by_device_and_backend():
+    """'auto' on CPU tensors is the plain version ('plain' and the
+    reference's 'jnp' too); 'cuda' and the reference's 'pallas' mean the
+    kernel and so raise on CPU tensors."""
+    import dataclasses
+
+    from shape_based_object_detection_torch.config import MatchConfig
+    from shape_based_object_detection_torch.ops import matching
+
+    args = _match_inputs()
+    cfg = MatchConfig(pos_threshold=0.5, neg_threshold=0.4, allow_low_quality=True)
+    auto = matching.match_batch(*args, cfg)
+    for backend in ("plain", "jnp"):
+        got = matching.match_batch(*args, dataclasses.replace(cfg, backend=backend))
+        assert all(torch.equal(a, b) for a, b in zip(got, auto))
+    for backend in ("cuda", "pallas"):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            matching.match_batch(*args, dataclasses.replace(cfg, backend=backend))
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    import dataclasses
+
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    _no_cuda(monkeypatch)
+    cfg = config.get_config("tiny_retinanet")
+    module, anchors = build_model(cfg.model, device="cpu", train=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.create_train_state(module, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.make_train_step(module, anchors, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.make_eval_step(module, anchors, cfg)
+    state = train.create_train_state(module, cfg, device="cpu")
+    assert state.generator.device.type == "cpu"
+    train.make_train_step(module, anchors, cfg, device="cpu")
+    for bad in (dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, train_bn=True)),
+                dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True)),
+                dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train.make_train_step(module, anchors, bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.make_train_step_pipelined(module, anchors, cfg)
+    bf16 = dataclasses.replace(cfg.model, dtype="bfloat16")
+    served, _ = build_model(bf16, device="cpu")
+    with pytest.raises(ValueError, match="train=True"):
+        train.create_train_state(served, dataclasses.replace(cfg, model=bf16), device="cpu")
