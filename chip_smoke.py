@@ -11,7 +11,10 @@ batch 16 with augmentation), and checks both:
   2. kernel vs plain: the greedy-NMS kernel (K1) against
      ``ops.nms.greedy_nms`` on the card at (B, N, M) = (16, 1000, 100),
      (16, 400, 200) and (8, 2000, 100), with class-offset boxes, padding
-     rows and tied scores; idx, valid and the score bits must be equal;
+     rows and tied scores, and on the edge cases of ``nms_edge_cases`` in
+     ``tests/torch_kernel_cases.py`` (a pick with IoU(p, p) < t filling the remaining slots, t > 1, -0/+0
+     ties, no live candidate, N < M); idx, valid and the score bits must be
+     equal, one launch each; above its candidate limit the wrapper raises;
   3. forward on the card vs the CPU, float32 with TF32 off, one image, the
      same weights; then detect end to end on both, matched detection by
      detection;
@@ -22,11 +25,15 @@ batch 16 with augmentation), and checks both:
      clock, and the host resize alone;
   5. serving timing with CUDA events after warm-up (median and p90): detect
      images/s at batch 16 in bf16 and float32, a stage breakdown, and K1's
-     time beside its bound and the plain version's time;
+     time on the path's candidates (CUDA events between back-to-back wrapper
+     calls, and the device time of its kernels under torch.profiler) beside
+     its bound and the plain version's time;
   6. the matching kernel (K2) against ``ops.matching.match_reductions_plain``
      at (B, A, G) = (16, 49104, 64) (every GT the same box, 8 of 64 valid:
      all ties), (16, 49104, 100) (random boxes, invalid rows, an image with
-     no valid GT, duplicate GTs) and (4, 76725, 100) with shape_weight 0.3;
+     no valid GT, duplicate GTs) and (4, 76725, 100) with shape_weight 0.3,
+     and on the edge cases of ``match_edge_cases`` (G = 1, 0 to 100 valid
+     rows of 100, every row valid, shape_weight 0.3 and 1.5, all ties);
      assignments bit-equal, the full MatchResult after the epilogue equal;
   7. a train step on the card vs the CPU: full-width R50-FPN-512, float32
      with TF32 off in forward and backward, augment off, batch 2, the same
@@ -41,7 +48,8 @@ batch 16 with augmentation), and checks both:
   9. training timing with CUDA events: train images/s at b16 bf16, a stage
      breakdown (augment, forward+loss+backward, match_batch, optimizer
      update; forward and forward+loss alone beside them), and K2's time
-     beside its bound and the plain version's time;
+     (CUDA events and profiler device time, as for K1) beside its bound and
+     the plain version's time;
  10. a torch.profiler trace of three train steps: the device's busy time
      per step, hence its idle share, the device time by operator, and the
      host's time to enqueue a step.
@@ -109,55 +117,82 @@ def cuda_times_ms(fn, iters: int, warmup: int = 3) -> np.ndarray:
     return np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
 
 
+def kernel_name(name: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+
+
+def device_ms_per_call(fn, calls: int = 50):
+    """The profiler's device time per call of ``fn`` over ``calls`` calls:
+    for each kernel (or memset) it runs, its mean self device time times its
+    launches per call, summed. Returns (ms, {kernel: (launches per call, mean
+    ms)}), or (None, {}) when the profiler records nothing on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            count, us = totals.get(kernel_name(e.name), (0, 0.0))
+            totals[kernel_name(e.name)] = (count + 1, us + e.self_device_time_total)
+    # a launch the profiler missed must not shorten the per-call time
+    kernels = {k: (max(1, round(n / calls)), us / n / 1e3) for k, (n, us) in totals.items()}
+    if not kernels or sum(us for _, us in totals.values()) <= 0:
+        return None, {}
+    return sum(n * ms for n, ms in kernels.values()), kernels
+
+
+def fmt_device(device_ms, kernels) -> str:
+    if device_ms is None:
+        return "device time not measured (the profiler recorded no kernels)"
+    return (f"device {device_ms:.4f} ms per call (torch.profiler over 50 calls: "
+            + ", ".join(f"{k} x{n} {ms:.4f} ms" for k, (n, ms) in kernels.items()) + ")")
+
+
 def spread(times_ms: np.ndarray) -> str:
     """Median, p90 and sample count of a set of times."""
     return (f"median {np.median(times_ms):.4f} ms, p90 "
             f"{np.percentile(times_ms, 90):.4f} ms, n={len(times_ms)}")
 
 
-def nms_inputs(rng, b, n, classes=80):
-    """Candidates as the detect path gives them: clipped xyxy boxes, some
-    clipped to zero width, sigmoid-range scores with forced ties, classes,
-    and padding rows at the end."""
-    cxcy = rng.uniform(0.0, 1.0, (b, n, 2))
-    wh = rng.uniform(0.02, 0.4, (b, n, 2))
-    boxes = np.clip(np.concatenate([cxcy - wh / 2, cxcy + wh / 2], -1), 0, 1)
-    boxes = boxes.astype(np.float32)
-    boxes[:, ::41, 2] = boxes[:, ::41, 0]
-    scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
-    scores[:, 20:60] = scores[:, 5:6]
-    cls = rng.integers(0, classes, (b, n)).astype(np.int32)
-    valid = np.ones((b, n), bool)
-    valid[:, -n // 10:] = False
-    return boxes, scores, cls, valid
-
-
 def phase_kernel(torch, nms, nms_cuda):
-    """Kernel vs plain on the card, bit for bit. Returns the largest
+    """Kernel vs plain on the card, bit for bit, at the path's shapes and on
+    the edge cases; the candidate limit must raise. Returns the largest
     |difference| seen over idx and score."""
+    from tests.torch_kernel_cases import nms_bit_equal, nms_edge_cases, nms_inputs
+
     rng = np.random.default_rng(0)
     worst = 0.0
+    cases = []
     for b, n, m in ((16, 1000, 100), (16, 400, 200), (8, 2000, 100)):
         boxes, scores, cls, valid = (torch.from_numpy(a).cuda()
                                      for a in nms_inputs(rng, b, n))
-        shifted = nms.class_offset_boxes(boxes, cls)
-        before = nms_cuda.launches
-        got = nms_cuda.greedy_nms_cuda(shifted, scores, valid, 0.5, m)
-        torch.cuda.synchronize()
-        if nms_cuda.launches != before + 1:
-            raise RuntimeError("the kernel's launch counter did not advance")
-        want = nms.greedy_nms(shifted, scores, valid, 0.5, m)
-        same = (torch.equal(got.indices, want.indices)
-                and torch.equal(got.valid, want.valid)
-                and torch.equal(got.scores.view(torch.int32),
-                                want.scores.view(torch.int32)))
-        worst = max(worst, float((got.scores - want.scores).abs().max()),
-                    float((got.indices - want.indices).abs().max()))
-        log(f"[kernel] nms_greedy (B, N, M)=({b}, {n}, {m}): bit-equal={same}, "
-            f"kept={int(got.valid.sum())}")
+        cases.append((f"(B, N, M)=({b}, {n}, {m})", nms.class_offset_boxes(boxes, cls),
+                      scores, valid, 0.5, m))
+    for name, (boxes, scores, valid, t, m) in nms_edge_cases().items():
+        cases.append((f"{name} (B, N, M)=({scores.shape[0]}, {scores.shape[1]}, {m}), "
+                      f"t={t}", *(torch.from_numpy(a).cuda() for a in (boxes, scores, valid)),
+                      t, m))
+    for name, boxes, scores, valid, t, m in cases:
+        same, err, kept = nms_bit_equal(boxes, scores, valid, t, m)
+        worst = max(worst, err)
+        log(f"[kernel] nms_greedy {name}: bit-equal={same}, kept={kept}")
         if not same:
-            raise RuntimeError(f"nms_greedy differs from the plain version at "
-                               f"({b}, {n}, {m})")
+            raise RuntimeError(f"nms_greedy differs from the plain version: {name}")
+    limit = nms_cuda.MAX_CANDIDATES
+    big = torch.zeros(1, limit + 1, 4, device="cuda")
+    try:
+        nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
+    except ValueError as e:
+        log(f"[kernel] nms_greedy at N = {limit + 1} raises: {e}")
+    else:
+        raise RuntimeError(f"nms_greedy took {limit + 1} candidates, above its limit")
     return worst
 
 
@@ -350,6 +385,8 @@ def phase_timing(torch, config, build_model, make_detect_fn, detection, nms,
     shifted = nms.class_offset_boxes(boxes, cls)
     k_times = cuda_times_ms(
         lambda: nms_cuda.greedy_nms_cuda(shifted, scores, valid, t, m), iters=200)
+    dev_ms, dev_names = device_ms_per_call(
+        lambda: nms_cuda.greedy_nms_cuda(shifted, scores, valid, t, m))
     p_times = cuda_times_ms(lambda: nms.greedy_nms(shifted, scores, valid, t, m),
                             iters=5, warmup=1)
     k_ms, p_ms = float(np.median(k_times)), float(np.median(p_times))
@@ -361,83 +398,52 @@ def phase_timing(torch, config, build_model, make_detect_fn, detection, nms,
     nbytes = b * n * (16 + 4 + 1) + b * m * (4 + 4 + 1)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
-    log(f"[timing] nms_greedy ({b}, {n}, {m}) on the path's candidates: "
-        f"kernel {spread(k_times)}; plain "
+    log(f"[timing] nms_greedy ({b}, {n}, {m}) on the path's candidates "
+        f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
+        f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
         f"{spread(p_times)}; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, "
         f"{ops} ops over {steps} steps), library call: none (no PyTorch op "
         f"computes greedy NMS)")
-    results["nms"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    # the same shape with random scores, which the kernel has to sort (the
+    # path's candidates arrive in order and skip the sort)
+    from tests.torch_kernel_cases import nms_inputs
+
+    rb, rs, rc, rv = (torch.from_numpy(x).cuda() for x in nms_inputs(np.random.default_rng(7), b, n))
+    rshift = nms.class_offset_boxes(rb, rc)
+    log(f"[timing] nms_greedy ({b}, {n}, {m}) on random scores (the sort runs): "
+        + fmt_device(*device_ms_per_call(
+            lambda: nms_cuda.greedy_nms_cuda(rshift, rs, rv, t, m))))
+    results["nms"] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
     return results
 
 
-def match_inputs(rng, b, g, kind):
-    """GT batches for the matcher: "ties" is bench_train.py's batch (every
-    GT the box [0.2, 0.2, 0.7, 0.7], 8 of G valid); "random" has boxes of
-    mixed sizes, invalid rows, image 1 with no valid GT and GT 1 a copy of
-    GT 0."""
-    if kind == "ties":
-        gt = np.tile(np.asarray([0.2, 0.2, 0.7, 0.7], np.float32), (b, g, 1))
-        valid = np.zeros((b, g), bool)
-        valid[:, :8] = True
-    else:
-        xy = rng.uniform(0.0, 0.9, (b, g, 2))
-        wh = np.exp(rng.uniform(np.log(0.01), np.log(0.8), (b, g, 2)))
-        gt = np.clip(np.concatenate([xy, xy + wh], -1), 0, 1).astype(np.float32)
-        gt[:, 1] = gt[:, 0]
-        valid = rng.uniform(size=(b, g)) < 0.7
-        valid[1] = False
-    labels = rng.integers(1, 81, (b, g)).astype(np.int32)
-    return gt, labels, valid
+def phase_match_kernel(torch, config, anchors_for_model):
+    """K2 vs plain on the card at the path's shapes and on the edge cases.
+    Returns the worst |difference| over best_q and reg (the assignments must
+    be equal)."""
+    from tests.torch_kernel_cases import match_check, match_edge_cases, match_inputs
 
-
-def phase_match_kernel(torch, config, matching, matching_cuda, anchors_for_model):
-    """K2 vs plain on the card. Returns the worst |difference| over best_q
-    and reg (the assignments must be equal)."""
     rng = np.random.default_rng(5)
     r50 = config.get_config("retinanet_r50_fpn").model
     r101 = config.get_config("retinanet_r101_fpn").model
+    cases = [(kind, model, *match_inputs(rng, b, g, kind), sw)
+             for model, b, g, kind, sw in ((r50, 16, 64, "ties", 0.0),
+                                           (r50, 16, 100, "random", 0.0),
+                                           (r101, 4, 100, "random", 0.3))]
+    cases += [(name, r50, *case) for name, case in match_edge_cases().items()]
     worst = 0.0
-    for model, b, g, kind, sw in ((r50, 16, 64, "ties", 0.0), (r50, 16, 100, "random", 0.0),
-                                  (r101, 4, 100, "random", 0.3)):
+    for name, model, gt, labels, valid, sw in cases:
         anchors = anchors_for_model(model).cuda()
-        gt, labels, valid = (torch.from_numpy(x).cuda() for x in match_inputs(rng, b, g, kind))
-        variances = model.anchors.variances
-        before = matching_cuda.launches
-        got = matching_cuda.match_reductions_cuda(anchors, gt, labels, valid, sw, 1.0,
-                                                  variances)
-        torch.cuda.synchronize()
-        if matching_cuda.launches != before + 1:
-            raise RuntimeError("the matching kernel's launch counter did not advance")
-        want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, 1.0,
-                                               variances)
-        bq_bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-        bq_ulp = int((got[0].view(torch.int32) - want[0].view(torch.int32)).abs().max())
-        assign = (torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
-                  and torch.equal(got[2][valid], want[2][valid]))
-        reg_err = float((got[4] - want[4]).abs().max())
-        q_err = float((got[0] - want[0]).abs().max())
-        worst = max(worst, reg_err, q_err)
-        cfg = config.MatchConfig(pos_threshold=0.5, neg_threshold=0.4,
-                                 allow_low_quality=True, shape_weight=sw)
-        kern = matching.match_batch(anchors, gt, labels, valid,
-                                    dataclasses.replace(cfg, backend="cuda"), variances)
-        plain = matching.match_batch(anchors, gt, labels, valid,
-                                     dataclasses.replace(cfg, backend="plain"), variances)
-        result_equal = all(torch.equal(getattr(kern, f), getattr(plain, f)) for f in
-                           ("matched_gt_idx", "cls_targets", "positive", "quality"))
-        result_reg = float((kern.reg_targets - plain.reg_targets).abs().max())
-        log(f"[kernel] match_anchors (B, A, G)=({b}, {anchors.shape[0]}, {g}) {kind}, "
-            f"shape_weight {sw}: assignments equal={assign}, best_q bit-equal={bq_bits} "
-            f"(worst {bq_ulp} ulp, |err| {q_err:.3e}), reg max |err| {reg_err:.3e}; "
-            f"MatchResult after the epilogue equal={result_equal}, reg max |err| "
-            f"{result_reg:.3e}; positives {int(kern.positive.sum())}")
-        # exp enters best_q only at shape_weight > 0, log enters reg: a few
-        # ulp there; everything else to the bit
-        if not (assign and result_equal and (bq_bits or (sw > 0 and bq_ulp <= 4))
-                and reg_err <= 1e-5 * max(1.0, float(want[4].abs().max()))
-                and result_reg <= 1e-5 * max(1.0, float(plain.reg_targets.abs().max()))):
-            raise RuntimeError(f"match_anchors differs from the plain version at "
-                               f"({b}, {anchors.shape[0]}, {g}) {kind}")
+        gt, labels, valid = (torch.from_numpy(x).cuda() for x in (gt, labels, valid))
+        b, g = valid.shape
+        passed, err, line = match_check(anchors, gt, labels, valid, sw,
+                                        model.anchors.variances)
+        worst = max(worst, err)
+        log(f"[kernel] match_anchors {name} (B, A, G)=({b}, {anchors.shape[0]}, {g}), "
+            f"{int(valid.sum())} valid GTs, shape_weight {sw}: {line}")
+        if not passed:
+            raise RuntimeError(f"match_anchors differs from the plain version: {name}")
     return worst
 
 
@@ -622,6 +628,8 @@ def phase_train_timing(torch, train, matching, matching_cuda, state, step, modul
         f"vs step {ms:.3f}")
 
     # K2 on the path's own augmented batch, then on bench_train.py's batch
+    from tests.torch_kernel_cases import match_inputs
+
     entry = None
     for name, (gt, lbl, ok) in (
             ("the path's augmented batch", aug[1:4]),
@@ -631,6 +639,8 @@ def phase_train_timing(torch, train, matching, matching_cuda, state, step, modul
         gt, lbl, ok = gt.contiguous(), lbl.contiguous(), ok.contiguous()
         args = (anchors, gt, lbl, ok, cfg.match.shape_weight, cfg.match.shape_tau, variances)
         k_times = cuda_times_ms(lambda: matching_cuda.match_reductions_cuda(*args), iters=100)
+        dev_ms, dev_names = device_ms_per_call(
+            lambda: matching_cuda.match_reductions_cuda(*args))
         p_times = cuda_times_ms(lambda: matching.match_reductions_plain(*args), iters=10)
         b, g = ok.shape
         a = anchors.shape[0]
@@ -640,13 +650,16 @@ def phase_train_timing(torch, train, matching, matching_cuda, state, step, modul
         nbytes = a * 16 + b * g * (16 + 4 + 1) + b * a * (4 + 4 + 4 + 16) + b * g * 4
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
-        log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name}: kernel "
-            f"{spread(k_times)}; plain {spread(p_times)}; bound {bound_ms:.5f} ms "
+        log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name} "
+            f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
+            f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
+            f"{spread(p_times)}; bound {bound_ms:.5f} ms "
             f"({bound_by}: {nbytes} bytes, {ops} ops over {int(ok.sum())} valid GTs), "
             f"library call: none (no PyTorch op computes the matching)")
         if entry is None:
-            entry = dict(ms=float(np.median(k_times)), plain_ms=float(np.median(p_times)),
-                         bound_ms=bound_ms, bound_by=bound_by)
+            entry = dict(ms=float(np.median(k_times)), device_ms=dev_ms,
+                         plain_ms=float(np.median(p_times)), bound_ms=bound_ms,
+                         bound_by=bound_by)
     results["match"] = entry
     return results
 
@@ -727,8 +740,7 @@ def main() -> int:
                                       reset_counts)
     timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
                           nms, nms_cuda)
-    match_err = phase_match_kernel(torch, config, matching, matching_cuda,
-                                   anchors_for_model)
+    match_err = phase_match_kernel(torch, config, anchors_for_model)
     phase_train_check(torch, config, train, build_model)
     trained = phase_training(torch, config, train, build_model, matching_cuda, nms_cuda,
                              reset_counts)

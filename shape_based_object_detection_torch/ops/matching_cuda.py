@@ -25,16 +25,20 @@ from shape_based_object_detection_torch.utils import native
 # caller that wants to see whether a run went through it).
 launches = 0
 
+# device index -> the most GT rows per image the kernel takes (what fits its
+# shared memory), read once per device when the kernel is set up there
+_max_gt: dict = {}
+
 
 def _lib() -> ctypes.CDLL:
     lib = native.load("match_anchors")
     if not getattr(lib, "_sbd_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.match_anchors_launch.argtypes = [p, p, p, p, i, i, i, f, f, f, f, f,
-                                             p, p, p, p, p, p, p]
+                                             p, p, p, p, p, p, p, p]
         lib.match_anchors_launch.restype = i
-        lib.match_anchors_max_gt.argtypes = []
-        lib.match_anchors_max_gt.restype = i
+        lib.match_anchors_init.argtypes = []
+        lib.match_anchors_init.restype = i
         lib._sbd_typed = True
     return lib
 
@@ -84,17 +88,24 @@ def match_reductions_cuda(
         raise ValueError(f"shape_tau must be > 0, got {tau}")
     lib = _lib()
     with torch.cuda.device(device):
-        max_g = lib.match_anchors_max_gt()
+        max_g = _max_gt.get(device.index)
+        if max_g is None:
+            max_g = lib.match_anchors_init()
+            if max_g <= 0:
+                raise RuntimeError("setting up the match_anchors kernel failed")
+            _max_gt[device.index] = max_g
         if g > max_g:
             raise ValueError(f"{g} GT rows do not fit the kernel's shared memory "
                              f"(at most {max_g})")
-        keys = torch.empty((b, g), dtype=torch.int64, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # the per-GT argmax keys (B, G), then the kernel's finish counter:
+        # zeroed in one fill
+        keys = torch.zeros(b * g + 1, dtype=torch.int64, device=device)
         best_q = torch.empty((b, a), dtype=torch.float32, device=device)
         best_g = torch.empty((b, a), dtype=torch.int32, device=device)
         gt_a = torch.empty((b, g), dtype=torch.int32, device=device)
         label = torch.empty((b, a), dtype=torch.int32, device=device)
         reg = torch.empty((b, a, 4), dtype=torch.float32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
         vc, vs = variances
         # (1 - w) is rounded from the double, as the plain version's Python
         # scalar is
@@ -102,7 +113,7 @@ def match_reductions_cuda(
             anchors.data_ptr(), boxes.data_ptr(), labels.data_ptr(),
             valid.data_ptr(), b, a, g, float(shape_weight),
             float(1.0 - shape_weight), float(tau), float(vc), float(vs),
-            keys.data_ptr(), best_q.data_ptr(), best_g.data_ptr(),
+            keys.data_ptr(), keys[b * g:].data_ptr(), best_q.data_ptr(), best_g.data_ptr(),
             gt_a.data_ptr(), label.data_ptr(), reg.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"match_anchors kernel launch failed: CUDA error {err}")

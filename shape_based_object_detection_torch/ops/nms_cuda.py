@@ -2,12 +2,13 @@
 ``csrc/nms_greedy.cu``, which replaces the JAX package's Pallas kernel
 (``ops/nms_pallas.py``).
 
-The kernel runs one thread block per image with the image's candidates in
-shared memory, and reproduces ``ops/nms.greedy_nms`` bit for bit. These
-functions take CUDA tensors only: a CPU tensor raises (the plain version in
-``ops/nms.py`` is what runs on the CPU, chosen by the caller from the
-tensors' device). Nothing here falls back. The kernel is built at first use
-(``utils/native.py``); importing this module needs neither nvcc nor a card.
+The kernel sorts each image's live candidates, builds their IoU bitmask
+over the whole card and sweeps it with one warp per image, and reproduces
+``ops/nms.greedy_nms`` bit for bit. These functions take CUDA tensors only:
+a CPU tensor raises (the plain version in ``ops/nms.py`` is what runs on the
+CPU, chosen by the caller from the tensors' device). Nothing here falls
+back. The kernel is built at first use (``utils/native.py``); importing this
+module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ from shape_based_object_detection_torch.utils import native
 # caller that wants to see whether a run went through it).
 launches = 0
 
-_max_candidates = None
+# The most candidates per image the kernel takes (kMaxN in nms_greedy.cu):
+# its sort holds one 64-bit key per candidate, padded to a power of two, in
+# 32 KB of static shared memory, and at that N the IoU bitmask is
+# N * ceil(N / 64) * 8 bytes = 2 MiB per image.
+MAX_CANDIDATES = 4096
+
+_ALIGN = 16  # the kernel reads and writes boxes as float4
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,10 +40,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_sbd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nms_greedy_launch.argtypes = [p, p, p, i, i, i, ctypes.c_float,
-                                          p, p, p, p]
+                                          p, p, p, p, p, p, p, p]
         lib.nms_greedy_launch.restype = i
-        lib.nms_greedy_max_candidates.argtypes = []
-        lib.nms_greedy_max_candidates.restype = i
         lib._sbd_typed = True
     return lib
 
@@ -48,11 +53,12 @@ def greedy_nms_cuda(
     iou_threshold: float,
     max_detections: int,
 ) -> NMSResult:
-    """Batched single-class greedy NMS in one kernel launch. Returns
-    (indices int32, scores float32, valid bool), each (B, max_detections),
-    equal to ``ops.nms.greedy_nms`` on the same inputs. Launches on the
-    current stream and does not synchronise."""
-    global launches, _max_candidates
+    """Batched single-class greedy NMS in one call of the kernel (its sort,
+    mask and sweep stages, launched together). Returns (indices int32,
+    scores float32, valid bool), each (B, max_detections), equal to
+    ``ops.nms.greedy_nms`` on the same inputs. Launches on the current
+    stream and does not synchronise."""
+    global launches
     if not (boxes_xyxy.is_cuda and scores.is_cuda and valid.is_cuda):
         raise ValueError(
             "greedy_nms_cuda takes CUDA tensors only; run ops.nms.greedy_nms "
@@ -67,29 +73,36 @@ def greedy_nms_cuda(
     if n < 1 or max_detections < 1:
         raise ValueError(f"need N >= 1 and max_detections >= 1, got {n}, "
                          f"{max_detections}")
+    if n > MAX_CANDIDATES:
+        raise ValueError(f"{n} candidates do not fit the kernel's shared memory "
+                         f"(at most {MAX_CANDIDATES} per image)")
     lib = _lib()
     device = boxes_xyxy.device
     with torch.cuda.device(device):
-        if _max_candidates is None:
-            _max_candidates = lib.nms_greedy_max_candidates()
-        if n > _max_candidates:
-            raise ValueError(
-                f"{n} candidates do not fit the kernel's shared memory "
-                f"(at most {_max_candidates})")
         # .contiguous() of a fresh float32 tensor is 256-byte aligned, as
         # the kernel's float4 loads need
         boxes = boxes_xyxy.to(torch.float32).contiguous()
-        if boxes.data_ptr() % 16:
+        if boxes.data_ptr() % _ALIGN:
             boxes = boxes.clone()
         scores_f = scores.to(device=device, dtype=torch.float32).contiguous()
         valid_b = valid.to(device=device, dtype=torch.bool).contiguous()
         idx = torch.empty((b, max_detections), dtype=torch.int32, device=device)
         sc = torch.empty((b, max_detections), dtype=torch.float32, device=device)
         ok = torch.empty((b, max_detections), dtype=torch.bool, device=device)
+        # scratch, one buffer: sorted boxes (B, N) float4, the IoU bitmask
+        # (B, N, ceil(N / 64)) uint64, the order (B, N) int32, live counts (B)
+        sizes = (b * n * 16, b * n * ((n + 63) // 64) * 8, b * n * 4, b * 4)
+        offsets, total = [], 0
+        for size in sizes:
+            offsets.append(total)
+            total += -(-size // _ALIGN) * _ALIGN
+        scratch = torch.empty(total, dtype=torch.uint8, device=device)
+        sorted_boxes, mask, order, n_live = (scratch.data_ptr() + o for o in offsets)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nms_greedy_launch(
             boxes.data_ptr(), scores_f.data_ptr(), valid_b.data_ptr(),
             b, n, max_detections, float(iou_threshold),
+            order, sorted_boxes, n_live, mask,
             idx.data_ptr(), sc.data_ptr(), ok.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error {err}")

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from shape_based_object_detection_torch.ops import nms
+from tests.torch_kernel_cases import (
+    match_check, match_edge_cases, nms_bit_equal, nms_edge_cases,
+)
 
 
 def _cuda():
@@ -64,9 +67,28 @@ def test_nms_kernel_takes_strided_and_refuses_oversized_inputs():
     got = nms_cuda.greedy_nms_cuda(strided, scores, valid, 0.45, 50)
     want = nms.greedy_nms(shifted, scores, valid, 0.45, 50)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    big = torch.zeros(1, 20000, 4, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
+    limit = nms_cuda.MAX_CANDIDATES
+    assert limit >= 2000
+    full, scores, _, valid = _inputs(1, 1, limit)  # the largest N it takes
+    same, _, kept = nms_bit_equal(full, scores, valid, 0.5, 100)
+    assert same and kept == 100
+    for n in (limit + 1, 20000):
+        big = torch.zeros(1, n, 4, device="cuda")
+        with pytest.raises(ValueError, match="shared memory"):
+            nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(nms_edge_cases()))
+def test_nms_kernel_edge_cases(name):
+    """The self-IoU fill (a zero-area box, an area of 1e-9, t = 1.5), all
+    candidates invalid, N < M and -0/+0 ties: idx, valid and score bits
+    equal to the plain version, one launch."""
+    nms_cuda = _cuda()
+    boxes, scores, valid, t, m = (torch.from_numpy(x).cuda() if isinstance(x, np.ndarray)
+                                  else x for x in nms_edge_cases()[name])
+    same, _, _ = nms_bit_equal(boxes, scores, valid, t, m)
+    assert same
 
 
 def _match_case(seed, b, a, g):
@@ -119,6 +141,26 @@ def test_match_kernel_equals_plain(b, a, g, sw):
     for field in ("matched_gt_idx", "cls_targets", "positive"):
         assert torch.equal(getattr(kern, field), getattr(plain, field)), field
     torch.testing.assert_close(kern.reg_targets, plain.reg_targets, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(match_edge_cases()))
+def test_match_kernel_edge_cases(name):
+    """G = 1, G = 100 with 0 to 100 valid rows, every row valid,
+    shape_weight 0.3 and 1.5, and bench_train.py's all-ties batch against
+    the R50-FPN-512 anchors: assignments bit-equal, best_q bit-equal at
+    shape_weight 0 (within 4 ulp where exp enters), one launch."""
+    _cuda()
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+
+    model = config.get_config("retinanet_r50_fpn").model
+    gt, labels, valid, sw = match_edge_cases()[name]
+    passed, _, line = match_check(
+        anchors_for_model(model).cuda(),
+        *(torch.from_numpy(x).cuda() for x in (gt, labels, valid)), sw,
+        model.anchors.variances)
+    assert passed, line
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
-JAX, flax or the JAX package; its modules import without nvcc or a card;
-its entry points refuse to run quietly on the CPU; its kernel wrapper
-refuses CPU tensors."""
+"""The PyTorch port stands alone: no file of it, nor chip_smoke.py and the
+kernel cases it shares with the tests, imports JAX, flax or the JAX
+package; its modules import without nvcc or a card; its entry points refuse
+to run quietly on the CPU; its kernel wrapper refuses CPU tensors."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "shape_based_object_detection_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shape_based_object_detection_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "torch_kernel_cases.py"]
 
 
 def _imported_modules(path):

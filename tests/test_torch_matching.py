@@ -215,3 +215,53 @@ def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="unknown match backend"):
         matching.match_batch(*_torch(anchors, gt, labels, valid),
                              dataclasses.replace(MatchConfig(), backend="tpu"))
+
+
+def _reductions_over_valid_rows(anchors, gt, labels, valid, sw, tau, variances):
+    """``match_reductions_plain`` over each image's valid GT rows only, as
+    the kernel (``csrc/match_anchors.cu``) compacts them: indices mapped back
+    to the full rows, and an image with no valid GT given best_q -1, GT 0,
+    GT 0's label and offsets, and gt_a 0 on padding rows."""
+    b, g = valid.shape
+    outs = [[] for _ in range(5)]
+    for i in range(b):
+        rows = torch.nonzero(valid[i]).flatten()
+        if len(rows) == 0:
+            # the no-valid-GT rule: best GT 0 at quality -1
+            best_g = torch.zeros(anchors.shape[0], dtype=torch.int32)
+            best_q = torch.full((anchors.shape[0],), -1.0)
+            label = labels[i, best_g.long()]
+            reg = boxes.encode_boxes(boxes.xyxy_to_cxcywh(gt[i, best_g.long()]),
+                                     anchors, variances)
+            gt_a = torch.zeros(g, dtype=torch.int32)
+        else:
+            bq, bg, ga, label, reg = matching.match_reductions_plain(
+                anchors, gt[i, rows][None], labels[i, rows][None],
+                torch.ones(1, len(rows), dtype=torch.bool), sw, tau, variances)
+            best_q, label, reg = bq[0], label[0], reg[0]
+            best_g = rows[bg[0].long()].to(torch.int32)
+            gt_a = torch.zeros(g, dtype=torch.int32).index_copy_(0, rows, ga[0])
+        for out, x in zip(outs, (best_q, best_g, gt_a, label, reg)):
+            out.append(x)
+    return tuple(torch.stack(x) for x in outs)
+
+
+@pytest.mark.parametrize("sw", [0.0, 0.3, 1.0])
+def test_valid_rows_only_equal_all_rows(sw):
+    """The kernel's premise: looping over the valid GT rows only (compacted
+    in their order) gives the same reductions, bit for bit, as the plain
+    version over all rows, for 0 <= shape_weight <= 1 (every valid quality
+    is >= 0 > -1, a padding row's quality). Image 1 has no valid GT; GT 1
+    repeats GT 0 (duplicates tie)."""
+    anchors, gt, labels, valid = _torch(*_random_case(21, 3, 400, 19))
+    variances = (0.1, 0.2)
+    want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, 1.0, variances)
+    got = _reductions_over_valid_rows(anchors, gt, labels, valid, sw, 1.0, variances)
+    assert not valid[1].any() and valid[0].sum() > 2
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  want[0].numpy().view(np.int32))
+    for x, y in zip(got[1:4], want[1:4]):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    np.testing.assert_array_equal(got[4].numpy().view(np.int32),
+                                  want[4].numpy().view(np.int32))
+    assert (want[0][1] == -1).all() and (want[1][1] == 0).all()
