@@ -32,18 +32,19 @@ def build_module(cfg: ModelConfig) -> nn.Module:
 
         return RetinaNet(cfg)
     if cfg.family == "ssd":
-        raise NotImplementedError(
-            "the SSD family is not ported yet (ROADMAP.md, modules still to "
-            "port, item 6)")
+        from shape_based_object_detection_torch.models.ssd import SSD
+
+        return SSD(cfg)
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisers: lecun-normal conv kernels and zero
-    biases; normal(0.01) kernels in the RetinaNet heads, whose final
-    classification bias keeps its prior; BatchNorm scale 1, bias 0, mean 0,
-    variance 1 (as constructed)."""
+    biases (every SSD convolution, its heads included); normal(0.01)
+    kernels in the RetinaNet heads, whose final classification bias keeps
+    its prior; BatchNorm scale 1, bias 0, mean 0, variance 1, and SSD's
+    L2Norm scale 20 (as constructed)."""
     from shape_based_object_detection_torch.models.retinanet import RetinaNetHead
 
     heads = [m for m in module.modules() if isinstance(m, RetinaNetHead)]
@@ -102,7 +103,7 @@ def build_model(
             "predictions")
     module = module.to(dev).eval()
     if cfg.dtype == "bfloat16" and not train:
-        # convolutions compute in bf16; BatchNorm statistics stay float32,
+        # convolutions compute in bf16; BatchNorm and L2Norm stay float32,
         # as the reference keeps its parameters
         for m in module.modules():
             if isinstance(m, nn.Conv2d):

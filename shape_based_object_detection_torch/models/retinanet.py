@@ -7,6 +7,11 @@ probability 0.01. Takes normalized NCHW images and returns
 anchors in the reference's order: level, then row, column, and per-cell
 anchor (octave-major, ratio-minor), as ``ops/anchors.retinanet_anchors``.
 
+``cfg.train_bn`` with a call-time ``train=True`` (the training forward)
+normalises the backbone's BatchNorm with batch statistics; ``cfg.remat``
+rematerialises each bottleneck, the FPN and each per-level head
+application, as the reference's ``nn.remat`` segments.
+
 ``cfg.dtype`` sets the convolutions' type ("bfloat16" runs them in bf16 with
 bf16 conv weights; BatchNorm stays float32). ``cfg.precision`` maps to cuDNN's
 TF32 switch for float32 convolutions: "highest" is true float32 (TF32 off),
@@ -26,7 +31,7 @@ from torch import nn
 
 from shape_based_object_detection_torch.config import ModelConfig
 from shape_based_object_detection_torch.models.fpn import FPN
-from shape_based_object_detection_torch.models.resnet import ResNet
+from shape_based_object_detection_torch.models.resnet import ResNet, run_segment
 from shape_based_object_detection_torch.ops.anchors import num_anchors_per_cell
 
 PRIOR_PROB = 0.01
@@ -71,7 +76,7 @@ class RetinaNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = ResNet(cfg.backbone, cfg.width_mult)
+        self.backbone = ResNet(cfg.backbone, cfg.width_mult, cfg.train_bn, cfg.remat)
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels)
         a = num_anchors_per_cell(cfg.anchors, 0, "retinanet")
         self.cls_head = RetinaNetHead(
@@ -79,12 +84,17 @@ class RetinaNet(nn.Module):
             final_bias=-math.log((1.0 - PRIOR_PROB) / PRIOR_PROB))
         self.box_head = RetinaNetHead(4, a, cfg.head_depth, cfg.fpn_channels)
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """images: (B, 3, H, W) normalized float."""
+    def forward(self, images: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """images: (B, 3, H, W) normalized float. ``train`` selects batch
+        statistics in BatchNorm where ``cfg.train_bn`` allows it."""
         dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
+        remat = self.cfg.remat
         with conv_precision(self.cfg.precision):
-            c3, c4, c5 = self.backbone(images.to(dtype))
-            pyramid = self.fpn(c3, c4, c5)
-            cls_logits = torch.cat([self.cls_head(p) for p in pyramid], 1)
-            box_offsets = torch.cat([self.box_head(p) for p in pyramid], 1)
+            c3, c4, c5 = self.backbone(images.to(dtype), train)
+            pyramid = run_segment(self.fpn, c3, c4, c5, remat=remat)
+            cls_logits = torch.cat([run_segment(self.cls_head, p, remat=remat)
+                                    for p in pyramid], 1)
+            box_offsets = torch.cat([run_segment(self.box_head, p, remat=remat)
+                                     for p in pyramid], 1)
         return cls_logits.float(), box_offsets.float()

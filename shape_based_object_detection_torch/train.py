@@ -14,6 +14,13 @@ Mixed precision follows the reference: parameters and optimizer state stay
 float32, and with ``model.dtype == "bfloat16"`` the forward computes in bf16
 under ``torch.autocast``. ``model.precision`` sets cuDNN's TF32 switch for
 the forward *and* the backward convolutions.
+
+``model.remat`` rematerialises the model's own segments (each bottleneck,
+the FPN and each head application; the VGG stages and the extras);
+``train.remat`` without it checkpoints the whole forward, as the
+reference's legacy path does. With ``model.train_bn`` the training forward
+normalises BatchNorm with batch statistics, and the running statistics
+move once per step, after backward, however often remat recomputed them.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from torch import nn
 from shape_based_object_detection_torch.config import ExperimentConfig, TrainConfig
 from shape_based_object_detection_torch.data.augment import augment_batch
 from shape_based_object_detection_torch.losses import detection_loss
+from shape_based_object_detection_torch.models.resnet import (
+    apply_batch_stats, clear_batch_stats, run_segment,
+)
 from shape_based_object_detection_torch.models.retinanet import conv_precision
 from shape_based_object_detection_torch.ops.boxes import true_div
 from shape_based_object_detection_torch.ops.matching import match_batch
@@ -204,22 +214,10 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     step: int
-    module: nn.Module  # the trainable parameters (float32) and frozen BN
+    module: nn.Module  # the trainable parameters (float32) and BN statistics
     opt_state: OptState
     generator: torch.Generator  # on the module's device; the augmentation's
     ema: Optional[Dict[str, torch.Tensor]] = None  # EMA of the parameters
-
-
-def _roadmap_guards(cfg: ExperimentConfig) -> None:
-    if cfg.model.train_bn:
-        raise NotImplementedError(
-            "train_bn=True (trainable BatchNorm with flax's biased batch "
-            "variance) is not ported yet (ROADMAP.md, modules still to port, "
-            "item 8)")
-    if cfg.model.remat or cfg.train.remat:
-        raise NotImplementedError(
-            "remat (torch.utils.checkpoint) is not ported yet (ROADMAP.md, "
-            "modules still to port, item 8)")
 
 
 def _on_device(module: nn.Module, anchors: Optional[torch.Tensor], device):
@@ -238,7 +236,6 @@ def create_train_state(module: nn.Module, cfg: ExperimentConfig, device=None,
     train=True)``) in place. ``device`` as ``build_model``'s: the card
     unless ``device="cpu"``. The augmentation's generator is seeded with
     ``cfg.train.seed`` on that device unless one is given."""
-    _roadmap_guards(cfg)
     dev = _on_device(module, None, device)
     not_f32 = [n for n, p in module.named_parameters() if p.dtype != torch.float32]
     if not_f32:
@@ -262,14 +259,20 @@ def _autocast(cfg: ExperimentConfig, device: torch.device):
 
 def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig):
     """``loss_fn(images_nchw, boxes, labels, valid) -> (loss, metrics)``,
-    the differentiable core of the train step."""
-    _roadmap_guards(cfg)
+    the differentiable core of the train step: the training forward
+    (``train=True``: batch statistics in BatchNorm where ``train_bn`` is
+    set), then matching and the loss. ``train.remat`` on a module built
+    without ``model.remat`` checkpoints the whole forward."""
     variances = cfg.model.anchors.variances
     device = anchors.device
+    whole_remat = cfg.train.remat and not module.cfg.remat
+
+    def forward(images):
+        return module(images, train=True)
 
     def loss_fn(images, boxes, labels, valid):
         with _autocast(cfg, device):
-            cls_logits, box_offsets = module(images)
+            cls_logits, box_offsets = run_segment(forward, images, remat=whole_remat)
         with torch.no_grad():
             match = match_batch(anchors, boxes, labels, valid, cfg.match, variances)
         return detection_loss(cls_logits.float(), box_offsets.float(), match,
@@ -281,14 +284,18 @@ def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig
 def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
                      cfg: ExperimentConfig, state: TrainState, images, boxes,
                      labels, valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """forward + backward -> optimizer -> EMA: the shared tail of the step."""
+    """forward + backward -> BatchNorm statistics -> optimizer -> EMA: the
+    shared tail of the step."""
     params = list(state.module.parameters())
     for p in params:
         p.grad = None
+    clear_batch_stats(state.module)
     # TF32 for the backward convolutions too, which run after forward returns
     with conv_precision(cfg.model.precision):
         loss, metrics = loss_fn(images, boxes, labels, valid)
         loss.backward()
+    # the batch statistics of the forward, once, as the reference's aux
+    apply_batch_stats(state.module)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = global_norm(grads)
@@ -320,7 +327,6 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
     device are used in place. The state is updated in place and returned;
     the metrics are 0-d tensors on the device (reading one waits for the
     step)."""
-    _roadmap_guards(cfg)
     dev = _on_device(module, anchors, device)
     opt = make_optimizer(cfg.train)
     loss_fn = make_loss_fn(module, anchors, cfg)
@@ -344,13 +350,16 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
 def make_train_step_pipelined(module, anchors, cfg: ExperimentConfig):
     raise NotImplementedError(
         "the pipelined train step (augment of batch i+1 inside step i) is not "
-        "ported yet (ROADMAP.md, modules still to port, item 8)")
+        "ported yet (ROADMAP.md, modules still to port, item 8, the pipelined "
+        "step)")
 
 
 def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
                    use_ema: bool = False, device=None):
     """Returns ``eval_step(state, images) -> Detections``: forward with the
-    state's parameters (or its EMA) and postprocess, for validation."""
+    state's parameters (or its EMA) and postprocess, for validation.
+    BatchNorm normalises with its running statistics (the module's buffers,
+    with the EMA too)."""
     from shape_based_object_detection_torch.detection import postprocess
 
     dev = _on_device(module, anchors, device)

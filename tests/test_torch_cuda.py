@@ -191,3 +191,84 @@ def test_bf16_train_step_on_the_card():
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     assert all(p.dtype == torch.float32 for p in module.parameters())
     assert all(t.dtype == torch.float32 for t in state.opt_state.trace)
+
+
+def _tiny_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    s, g = cfg.model.image_size, cfg.data.max_boxes
+    xy = rng.uniform(0, 0.6, (2, g, 2))
+    return {"images": torch.from_numpy(rng.integers(0, 256, (2, s, s, 3), dtype=np.uint8)),
+            "boxes": torch.from_numpy(np.concatenate([xy, xy + 0.3], -1).astype(np.float32)),
+            "labels": torch.from_numpy(rng.integers(1, cfg.model.num_classes + 1,
+                                                    (2, g)).astype(np.int32)),
+            "valid": torch.ones(2, g, dtype=torch.bool)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_detect_on_the_card(dtype):
+    """The tiny SSD's detect on the card: one K1 launch per call, the
+    result equal to the plain version on the same candidates."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch import config, detection
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    cfg = config.dataclasses.replace(config.tiny_test_model("ssd"), dtype=dtype)
+    module, anchors = build_model(cfg)
+    images = np.random.default_rng(1).integers(0, 256, (4, 300, 300, 3), dtype=np.uint8)
+    before = nms_cuda.launches
+    det = detection.make_detect_fn(module, anchors, cfg)(images)
+    assert nms_cuda.launches == before + 1 and bool(det.valid.any())
+    with torch.inference_mode():
+        x = detection.image_lib.normalize_images(
+            torch.from_numpy(images).cuda()).permute(0, 3, 1, 2)
+        cands = detection.select_candidates(*module(x), anchors, cfg)
+        got = detection.run_nms(*cands, cfg, backend="cuda")
+        want = detection.run_nms(*cands, cfg, backend="plain")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_ssd_train_step_with_shape_matching_on_the_card():
+    """One bf16 step of the tiny SSD with augmentation, multibox loss and
+    shape_weight 0.3, with model.remat: K2 launched once, finite loss."""
+    _cuda()
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    cfg = config.get_config("tiny_ssd")
+    cfg = config.dataclasses.replace(
+        cfg, model=config.dataclasses.replace(cfg.model, dtype="bfloat16", remat=True),
+        match=config.dataclasses.replace(cfg.match, shape_weight=0.3))
+    module, anchors = build_model(cfg.model, train=True)
+    state = train.create_train_state(module, cfg)
+    before = matching_cuda.launches
+    state, metrics = train.make_train_step(module, anchors, cfg)(state, _tiny_batch(cfg, 2))
+    assert matching_cuda.launches == before + 1
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+@pytest.mark.cuda
+def test_train_bn_statistics_move_once_under_remat_on_the_card():
+    """The tiny RetinaNet in bf16 with train_bn: the running statistics after
+    one step with model.remat equal those without (within 1e-6), and moved."""
+    _cuda()
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    base = config.get_config("tiny_retinanet")
+    batch = _tiny_batch(base, 3)
+    stats = {}
+    for remat in (False, True):
+        cfg = config.dataclasses.replace(base, model=config.dataclasses.replace(
+            base.model, dtype="bfloat16", train_bn=True, remat=remat))
+        module, anchors = build_model(cfg.model, train=True,
+                                      generator=torch.Generator().manual_seed(4))
+        state = train.create_train_state(module, cfg)
+        train.make_train_step(module, anchors, cfg)(state, batch)
+        stats[remat] = dict(module.named_buffers())
+    for name, want in stats[False].items():
+        torch.testing.assert_close(stats[True][name], want, rtol=0, atol=1e-6)
+    assert not torch.equal(stats[False]["backbone.bn1.running_mean"],
+                           torch.zeros_like(stats[False]["backbone.bn1.running_mean"]))

@@ -72,15 +72,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from shape_based_object_detection_torch.serving import Predictor
 
     _no_cuda(monkeypatch)
-    cfg = config.get_config("tiny_retinanet")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_model(cfg.model)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Predictor(cfg, batch_size=1)
-    module, anchors = build_model(cfg.model, device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_detect_fn(module, anchors, cfg.model)
-    assert next(module.parameters()).device.type == "cpu"
+    for name in ("tiny_retinanet", "tiny_ssd"):
+        cfg = config.get_config(name)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg.model)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Predictor(cfg, batch_size=1)
+        module, anchors = build_model(cfg.model, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_detect_fn(module, anchors, cfg.model)
+        assert next(module.parameters()).device.type == "cpu"
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -189,13 +190,21 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
     state = train.create_train_state(module, cfg, device="cpu")
     assert state.generator.device.type == "cpu"
     train.make_train_step(module, anchors, cfg, device="cpu")
-    for bad in (dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, train_bn=True)),
-                dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True)),
-                dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.make_train_step(module, anchors, bad, device="cpu")
+    # train_bn and both remat switches are ported; only the pipelined step
+    # still raises
+    for ok in (dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, train_bn=True)),
+               dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True)),
+               dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=True))):
+        train.create_train_state(module, ok, device="cpu")
+        train.make_train_step(module, anchors, ok, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.make_train_step_pipelined(module, anchors, cfg)
+    ssd = config.get_config("tiny_ssd")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(ssd.model, train=True)
+    ssd_module, ssd_anchors = build_model(ssd.model, device="cpu", train=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.make_train_step(ssd_module, ssd_anchors, ssd)
     bf16 = dataclasses.replace(cfg.model, dtype="bfloat16")
     served, _ = build_model(bf16, device="cpu")
     with pytest.raises(ValueError, match="train=True"):

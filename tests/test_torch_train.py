@@ -7,7 +7,9 @@
 - three train steps of the tiny RetinaNet (augment off, weight decay and
   clipping engaged) against ``make_train_step``, the same weights on both
   sides, compared through ``state_dict_from_jax_variables``;
-- EMA and gradient accumulation of the port's own step.
+- EMA and gradient accumulation of the port's own step;
+- three train steps of the tiny SSD with config #3's multibox loss and
+  shape matching against ``make_train_step``.
 
 Tolerances (float32, precision "highest"): losses, metrics and the
 optimizer's outputs to 1e-5 relative; the parameters after three steps to
@@ -30,7 +32,7 @@ from shape_based_object_detection_torch import train
 from shape_based_object_detection_torch.utils.convert import (
     state_dict_from_jax_variables,
 )
-from tests.torch_parity import jax_variables, port_model
+from tests.torch_parity import gt_batch, jax_variables, port_model, tiny_configs
 
 
 def _both(section: str, **kw):
@@ -134,20 +136,12 @@ def test_optimizer_matches_optax(kw):
 def tiny_train():
     """Config, weights and batch for the tiny RetinaNet train steps: weight
     decay and clipping engaged, augment off, allow_low_quality matching."""
-    kw = dict(
-        data=dict(batch_size=2, max_boxes=4),
+    j_cfg, t_cfg = tiny_configs(
+        "retinanet", data=dict(batch_size=2, max_boxes=4),
         train=dict(base_lr=0.05, warmup_steps=2, weight_decay=1e-2,
                    grad_clip_norm=0.5, lr_decay_steps=(100,)),
         match=dict(pos_threshold=0.5, neg_threshold=0.4, allow_low_quality=True),
-        loss=dict(kind="focal"),
-    )
-
-    def make(lib):
-        return lib.ExperimentConfig(
-            model=lib.tiny_test_model("retinanet"),
-            **{k: getattr(lib, f"{k.capitalize()}Config")(**v) for k, v in kw.items()})
-
-    j_cfg, t_cfg = make(jax_config), make(torch_config)
+        loss=dict(kind="focal"))
     module, variables = jax_variables(j_cfg.model, seed=4)
     rng = np.random.default_rng(5)
     b, g, s = 2, 4, j_cfg.model.image_size
@@ -248,3 +242,39 @@ def test_grad_accumulation_matches_big_batch(tiny_train):
     for (name, a), b in zip(acc_module.named_parameters(), module.parameters()):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    rtol=2e-4, atol=2e-6, err_msg=name)
+
+
+def test_three_ssd_train_steps_match_jax():
+    """Config #3's recipe on the tiny SSD: multibox loss with hard-negative
+    mining at 3:1 and shape matching (shape_weight 0.3, tau 1), weight decay
+    and clipping engaged, augment off. Metrics to 1e-5 relative and the
+    parameters after three steps to 2e-5, as the RetinaNet steps."""
+    j_cfg, t_cfg = tiny_configs(
+        "ssd", data=dict(batch_size=2, max_boxes=6),
+        train=dict(base_lr=0.05, warmup_steps=2, weight_decay=1e-2, grad_clip_norm=1.0,
+                   lr_decay_steps=(100,)),
+        match=dict(pos_threshold=0.5, neg_threshold=0.5, shape_weight=0.3, shape_tau=1.0),
+        loss=dict(kind="multibox", neg_pos_ratio=3.0))
+    module, variables = jax_variables(j_cfg.model, seed=6)
+    batch = gt_batch(7, 2, 6, 300, j_cfg.model.num_classes)
+    j_state = jax_train.create_train_state(module, variables, j_cfg)
+    j_step = jax_train.make_train_step(module, anchors_for_model(j_cfg.model), j_cfg,
+                                       augment=False)
+    port, t_anchors = port_model(t_cfg.model, variables)
+    t_state = train.create_train_state(port, t_cfg, device="cpu")
+    t_step = train.make_train_step(port, t_anchors, t_cfg, augment=False, device="cpu")
+    for step in range(3):
+        j_state, j_metrics = j_step(j_state, dict(batch))
+        t_state, t_metrics = t_step(t_state, batch)
+        for key in ("loss", "loss_cls", "loss_box", "num_pos", "grad_norm"):
+            np.testing.assert_allclose(float(t_metrics[key]), float(j_metrics[key]),
+                                       rtol=1e-5, err_msg=f"{key} at step {step}")
+    assert float(t_metrics["num_pos"]) > 0
+    want = state_dict_from_jax_variables(
+        jax.tree_util.tree_map(np.asarray, {"params": j_state.params}))
+    got = dict(port.named_parameters())
+    assert set(want) == set(got)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(), rtol=0,
+                                   atol=2e-5, err_msg=name)
+

@@ -131,24 +131,28 @@ def nms_bit_equal(boxes, scores, valid, t, m):
     return same, worst, int(got.valid.sum())
 
 
-def match_check(anchors, gt, labels, valid, sw, variances):
+def match_check(anchors, gt, labels, valid, sw, variances, cfg=None, exact=False):
     """One K2 launch against the plain version on the same card tensors,
-    then the MatchResult through both routes. Returns (passed, worst
-    |difference| over best_q and reg, a line for the log)."""
+    then the MatchResult through both routes under ``cfg`` (default: 0.5 /
+    0.4 thresholds with allow_low_quality at shape weight ``sw``). With
+    ``exact``, best_q must be bit-equal at any shape weight. Returns
+    (passed, worst |difference| over best_q and reg, a line for the log)."""
+    if cfg is None:
+        cfg = config.MatchConfig(pos_threshold=0.5, neg_threshold=0.4,
+                                 allow_low_quality=True, shape_weight=sw)
+    tau = cfg.shape_tau
     before = matching_cuda.launches
-    got = matching_cuda.match_reductions_cuda(anchors, gt, labels, valid, sw, 1.0, variances)
+    got = matching_cuda.match_reductions_cuda(anchors, gt, labels, valid, sw, tau, variances)
     torch.cuda.synchronize()
     if matching_cuda.launches != before + 1:
         raise RuntimeError("the matching kernel's launch counter did not advance by one")
-    want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, 1.0, variances)
+    want = matching.match_reductions_plain(anchors, gt, labels, valid, sw, tau, variances)
     bq_bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     bq_ulp = int((got[0].view(torch.int32) - want[0].view(torch.int32)).abs().max())
     assign = (torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
               and torch.equal(got[2][valid], want[2][valid]))
     reg_err = float((got[4] - want[4]).abs().max())
     q_err = float((got[0] - want[0]).abs().max())
-    cfg = config.MatchConfig(pos_threshold=0.5, neg_threshold=0.4,
-                             allow_low_quality=True, shape_weight=sw)
     kern = matching.match_batch(anchors, gt, labels, valid,
                                 dataclasses.replace(cfg, backend="cuda"), variances)
     plain = matching.match_batch(anchors, gt, labels, valid,
@@ -162,7 +166,8 @@ def match_check(anchors, gt, labels, valid, sw, variances):
             f"positives {int(kern.positive.sum())}")
     # exp enters best_q only at shape_weight > 0, log enters reg: a few
     # ulp there; everything else to the bit
-    passed = (assign and result_equal and (bq_bits or (sw > 0 and bq_ulp <= 4))
+    passed = (assign and result_equal
+              and (bq_bits or (not exact and sw > 0 and bq_ulp <= 4))
               and reg_err <= 1e-5 * max(1.0, float(want[4].abs().max()))
               and result_reg <= 1e-5 * max(1.0, float(plain.reg_targets.abs().max())))
     return passed, max(reg_err, q_err), line

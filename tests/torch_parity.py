@@ -11,7 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from shape_based_object_detection_tpu import config as jax_config
 from shape_based_object_detection_tpu.models.factory import build_module
+from shape_based_object_detection_torch import config as torch_config
 from shape_based_object_detection_torch.models.factory import build_model
 from shape_based_object_detection_torch.utils.convert import (
     state_dict_from_jax_variables,
@@ -29,8 +31,10 @@ def jax_variables(cfg, seed: int = 0, cls_predict_scale: float = 4.0):
 
     Kernels are normal with variance 1/fan_in, biases small, BatchNorm
     statistics and affine terms away from identity so the conversion of
-    every leaf matters. The classification head's final kernel is scaled
-    up so scores spread away from the prior and detections separate."""
+    every leaf matters. The classification kernels that give the scores
+    (RetinaNet's ``cls_head/predict``, SSD's ``cls_{i}``) are scaled up so
+    scores spread away from the prior and detections separate. SSD's
+    L2Norm scale is drawn around its working value of 20."""
     module = build_module(cfg)
     size = cfg.image_size
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
@@ -43,10 +47,13 @@ def jax_variables(cfg, seed: int = 0, cls_predict_scale: float = 4.0):
         if name == "kernel":
             fan_in = int(np.prod(shape[:-1]))
             w = rng.normal(0.0, np.sqrt(1.0 / fan_in), shape)
-            if names[-3:-1] == ["cls_head", "predict"]:
+            if (names[-3:-1] == ["cls_head", "predict"]
+                    or names[-2].startswith("cls_")):
                 w = w * cls_predict_scale
         elif name == "bias" and names[0] == "params" and "bn" not in names[-2]:
             w = rng.normal(0.0, 0.01, shape)
+        elif name == "scale" and names[-2] == "l2norm":
+            w = rng.uniform(10.0, 30.0, shape)
         elif name == "scale":
             w = rng.uniform(0.5, 1.0, shape)
         elif name == "bias":  # BatchNorm shift
@@ -61,6 +68,32 @@ def jax_variables(cfg, seed: int = 0, cls_predict_scale: float = 4.0):
 
     variables = jax.tree_util.tree_map_with_path(make, shapes)
     return module, variables
+
+
+def tiny_configs(family: str, model=None, **sections):
+    """The same tiny ExperimentConfig from both packages: ``model`` replaces
+    ModelConfig fields, each keyword a section's fields."""
+    def make(lib):
+        m = dataclasses.replace(lib.tiny_test_model(family), **(model or {}))
+        return lib.ExperimentConfig(model=m, **{
+            k: getattr(lib, f"{k.capitalize()}Config")(**v) for k, v in sections.items()})
+
+    return make(jax_config), make(torch_config)
+
+
+def gt_batch(seed, b, g, size, classes):
+    """uint8 images and 1 to g valid GT boxes of mixed sizes per image."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0.0, 0.6, (b, g, 2))
+    wh = np.exp(rng.uniform(np.log(0.05), np.log(0.4), (b, g, 2)))
+    batch = {
+        "images": rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8),
+        "boxes": np.clip(np.concatenate([xy, xy + wh], -1), 0, 1).astype(np.float32),
+        "labels": rng.integers(1, classes + 1, (b, g)).astype(np.int32),
+        "valid": np.arange(g)[None] < rng.integers(1, g + 1, (b, 1)),
+    }
+    batch["boxes"][~batch["valid"]] = 0.0
+    return batch
 
 
 def port_model(cfg, variables):
