@@ -94,6 +94,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -119,6 +120,7 @@ MATCH_OPS_PER_PAIR = 16
 MATCH_SHAPE_OPS_PER_PAIR = 11
 MATCH_SHAPE_OPS_PER_BOX = 2  # log w, log h of each anchor and valid GT
 KERNELS = ("nms_greedy", "match_anchors")
+HOST_LIBRARIES = ("ap_matcher", "jpeg_decoder")  # the eval and data paths' host C++
 
 
 def log(msg: str) -> None:
@@ -733,40 +735,46 @@ def phase_train_timing(torch, train, matching, matching_cuda, state, step, modul
         cases.append(("bench_train.py's batch (8 of 64 GTs valid, all one box)",
                       [torch.from_numpy(x).cuda()
                        for x in match_inputs(np.random.default_rng(9), 16, 64, "ties")]))
-    sw = cfg.match.shape_weight
     for name, (gt, lbl, ok) in cases:
-        gt, lbl, ok = gt.contiguous(), lbl.contiguous(), ok.contiguous()
-        args = (anchors, gt, lbl, ok, sw, cfg.match.shape_tau, variances)
-        k_times = cuda_times_ms(lambda: matching_cuda.match_reductions_cuda(*args), iters=100)
-        dev_ms, dev_names = device_ms_per_call(
-            lambda: matching_cuda.match_reductions_cuda(*args))
-        p_times = cuda_times_ms(lambda: matching.match_reductions_plain(*args), iters=10)
-        b, g = ok.shape
-        a = anchors.shape[0]
-        # the data needs the IoU of every anchor with every valid GT; an
-        # invalid row needs no arithmetic (its quality is -1); the shape
-        # term adds its per-pair arithmetic and each box's two logs
-        n_valid = int(ok.sum())
-        ops = a * n_valid * MATCH_OPS_PER_PAIR
-        if sw > 0:
-            ops += (a * n_valid * MATCH_SHAPE_OPS_PER_PAIR
-                    + (a + n_valid) * MATCH_SHAPE_OPS_PER_BOX)
-        nbytes = a * 16 + b * g * (16 + 4 + 1) + b * a * (4 + 4 + 4 + 16) + b * g * 4
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
-        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
-        log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name} "
-            f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
-            f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
-            f"{spread(p_times)}; bound {bound_ms:.5f} ms "
-            f"({bound_by}: {nbytes} bytes, {ops} ops over {n_valid} valid GTs, "
-            f"shape_weight {sw}), library call: none (no PyTorch op computes the "
-            f"matching)")
-        if entry is None:
-            entry = dict(ms=float(np.median(k_times)), device_ms=dev_ms,
-                         plain_ms=float(np.median(p_times)), bound_ms=bound_ms,
-                         bound_by=bound_by)
+        timed = match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok)
+        entry = entry or timed
     results["match"] = entry
     return results
+
+
+def match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok):
+    """K2's time on one batch of GT: CUDA events between back-to-back wrapper
+    calls, profiler device time, the plain version's time and the bound of
+    the work this data needs."""
+    gt, lbl, ok = gt.contiguous(), lbl.contiguous(), ok.contiguous()
+    sw = cfg.match.shape_weight
+    variances = cfg.model.anchors.variances
+    args = (anchors, gt, lbl, ok, sw, cfg.match.shape_tau, variances)
+    k_times = cuda_times_ms(lambda: matching_cuda.match_reductions_cuda(*args), iters=100)
+    dev_ms, dev_names = device_ms_per_call(lambda: matching_cuda.match_reductions_cuda(*args))
+    p_times = cuda_times_ms(lambda: matching.match_reductions_plain(*args), iters=10)
+    b, g = ok.shape
+    a = anchors.shape[0]
+    # the data needs the IoU of every anchor with every valid GT; an
+    # invalid row needs no arithmetic (its quality is -1); the shape
+    # term adds its per-pair arithmetic and each box's two logs
+    n_valid = int(ok.sum())
+    ops = a * n_valid * MATCH_OPS_PER_PAIR
+    if sw > 0:
+        ops += (a * n_valid * MATCH_SHAPE_OPS_PER_PAIR
+                + (a + n_valid) * MATCH_SHAPE_OPS_PER_BOX)
+    nbytes = a * 16 + b * g * (16 + 4 + 1) + b * a * (4 + 4 + 4 + 16) + b * g * 4
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
+    log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name} "
+        f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
+        f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
+        f"{spread(p_times)}; bound {bound_ms:.5f} ms "
+        f"({bound_by}: {nbytes} bytes, {ops} ops over {n_valid} valid GTs, "
+        f"shape_weight {sw}), library call: none (no PyTorch op computes the "
+        f"matching)")
+    return dict(ms=float(np.median(k_times)), device_ms=dev_ms,
+                plain_ms=float(np.median(p_times)), bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_train_profile(torch, state, step, batch, step_ms, tag):
@@ -1033,128 +1041,1158 @@ def phase_train_bn(torch, config, train, build_model):
         raise RuntimeError(f"remat moved the running statistics differently: {diff}")
 
 
+# ---------------------------------------------------------------------------
+# The training application: the frozen-BatchNorm repair, the pipelined
+# step, train_cli and eval_cli on config #3, checkpoints, the Loader
+# ---------------------------------------------------------------------------
+
+
+def frozen_bn_before_repair(self, x, train=False):
+    """The frozen BatchNorm branch before the repair: the running statistics
+    folded into a scale and shift in float32, both cast to the input's type,
+    one multiply-add in that type (bf16 rounds three times, not once)."""
+    import torch
+
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+    shift = self.bias.float() - self.running_mean.float() * mul
+    return torch.addcmul(shift.to(x.dtype).view(shape), x, mul.to(x.dtype).view(shape))
+
+
+class FrozenBnVariant:
+    """``with FrozenBnVariant(resnet, before=True):`` runs every BatchNorm
+    with the branch before the repair; ``before=False`` keeps the repaired
+    one."""
+
+    def __init__(self, resnet, before: bool):
+        self.cls, self.before = resnet.BatchNorm, before
+        self.saved = resnet.BatchNorm.forward
+
+    def __enter__(self):
+        if self.before:
+            self.cls.forward = frozen_bn_before_repair
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.saved
+
+
+def in_turns(variants, fn, rounds=2):
+    """``fn(variant)`` -> list of times, for each variant in turns (a, b, b,
+    a, ...) ``rounds`` times; returns {variant: all its times}."""
+    times = {v: [] for v in variants}
+    for r in range(rounds):
+        for v in (variants if r % 2 == 0 else variants[::-1]):
+            times[v].extend(fn(v))
+    return {v: np.array(t) for v, t in times.items()}
+
+
+def profile_op_ms(torch, fn, n, names):
+    """Device ms per call of ``fn`` (n calls under torch.profiler) of each
+    operator in ``names``, and of all kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()}
+    total = sum(e.self_device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return {k: ops.get(k, 0.0) for k in names}, total
+
+
+def bn_layer_inputs(torch, resnet, module, run):
+    """(BatchNorm, input shape, dtype, memory format) of every BatchNorm
+    call in ``run()``."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.append((m, args[0].shape, args[0].dtype,
+                                     args[0].is_contiguous(memory_format=torch.channels_last))))
+        for m in module.modules() if isinstance(m, resnet.BatchNorm)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def bn_alone_ms(torch, resnet, layers, backward, before):
+    """Device ms (torch.profiler, the kernels of 5 runs) of every frozen
+    BatchNorm call of one forward alone, on random inputs of its shapes;
+    with ``backward`` its backward too (grad to the input and to the scale
+    and bias). Its ~350 launches would make CUDA events time the host."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs = []
+    for bn, shape, dtype, cl in layers:
+        x = torch.randn(shape, device="cuda", dtype=dtype, generator=gen)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        xs.append((bn, x.requires_grad_(backward)))
+
+    def run():
+        for bn, x in xs:
+            y = bn(x)
+            if backward:  # the gradients of the input, the scale and the bias
+                torch.autograd.grad(y, (x, bn.weight, bn.bias), y.detach())
+
+    with FrozenBnVariant(resnet, before), torch.set_grad_enabled(backward):
+        return profile_op_ms(torch, run, 5, ())[1]
+
+
+def phase_bn_repair(torch, config, train, build_model, make_detect_fn):
+    """The frozen-BatchNorm repair on the card: the R50-512 backbone's bf16
+    forward card vs CPU (both against the CPU's float32 one); then before and
+    after the repair in one run, in turns: detect b16 bf16 images/s, the
+    bf16 b16 train step, the profiler's aten::mul per step, and the frozen
+    BatchNorm calls alone at the step's and detect's shapes."""
+    from shape_based_object_detection_torch.models import resnet
+
+    f32 = dataclasses.replace(config.get_config("retinanet_r50_fpn").model,
+                              precision="highest")
+    bf16 = dataclasses.replace(f32, dtype="bfloat16")
+    cpu32, _ = build_model(f32, device="cpu", generator=torch.Generator().manual_seed(1))
+    # statistics and affine terms away from identity (a fresh model's
+    # BatchNorm is one, and rounds the same before and after the repair)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for m in cpu32.modules():
+            if isinstance(m, resnet.BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    state = cpu32.state_dict()
+    image = np.random.default_rng(19).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    x = torch.from_numpy(image).permute(0, 3, 1, 2).float() / 255.0
+    outs = {}
+    # the backbone's C3-C5: a fresh model's heads (weights of std 0.01 on a
+    # prior bias) hide what the backbone computes
+    with torch.inference_mode():
+        outs["cpu32"] = cpu32.backbone(x)
+        del cpu32
+        for dev in ("cpu", "cuda"):
+            m, _ = build_model(bf16, device=dev)
+            m.load_state_dict(state)
+            xd = x.to(dev, torch.bfloat16)
+            if dev == "cuda":
+                xd = xd.contiguous(memory_format=torch.channels_last)
+            for before in (False, True):
+                with FrozenBnVariant(resnet, before):
+                    outs[(dev, before)] = [o.float().cpu() for o in m.backbone(xd)]
+            del m
+    ref = outs["cpu32"]
+
+    def mean_err(o, r):
+        return float(sum((a - b).abs().sum() for a, b in zip(o, r))
+                     / sum(b.numel() for b in r))
+
+    card, cpu = outs[("cuda", False)], outs[("cpu", False)]
+    e_card, e_cpu = mean_err(card, ref), mean_err(cpu, ref)
+    e_card_before, e_cpu_before = mean_err(outs[("cuda", True)], ref), mean_err(
+        outs[("cpu", True)], ref)
+    card_cpu = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+    finite = all(bool(torch.isfinite(o).all()) for o in card)
+    log(f"[bn] R50-512 backbone (C3-C5) in bf16, one 512 px image, the same weights: mean "
+        f"|bf16 - CPU float32| card {e_card:.5f}, CPU {e_cpu:.5f} (bound: card <= 2 x CPU "
+        f"+ 1e-3); card vs CPU bf16 max |err| {card_cpu:.4f}; with the frozen branch before "
+        f"the repair: card {e_card_before:.5f}, CPU {e_cpu_before:.5f}")
+    if not (finite and e_card <= 2 * e_cpu + 1e-3):
+        raise RuntimeError(f"bf16 forward on the card is off: {e_card} vs CPU {e_cpu}")
+    results = {"bn_bf16_forward_mean_err_card": e_card, "bn_bf16_forward_mean_err_cpu": e_cpu,
+               "bn_bf16_forward_mean_err_card_before": e_card_before,
+               "bn_bf16_forward_mean_err_cpu_before": e_cpu_before}
+
+    # detect b16 bf16 before and after, in turns
+    cfg = serving_config(config, "bfloat16").model
+    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    detect = make_detect_fn(module, anchors, cfg, device="cuda")
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
+
+    def detect_times(before):
+        with FrozenBnVariant(resnet, before):
+            return cuda_times_ms(lambda: detect(images), iters=15)
+
+    d = in_turns((False, True), detect_times, rounds=3)
+    d_dev = {}
+    for before in (False, True):
+        with FrozenBnVariant(resnet, before):
+            d_dev[before] = profile_op_ms(torch, lambda: detect(images), 5, ())[1]
+    with torch.inference_mode():
+        xn = (images.float() / 255.0).permute(0, 3, 1, 2)
+        layers_det = bn_layer_inputs(torch, resnet, module, lambda: module(xn))
+    bn_det = {b: bn_alone_ms(torch, resnet, layers_det, False, b) for b in (False, True)}
+    del module, detect
+    torch.cuda.empty_cache()
+
+    # the bf16 b16 train step before and after, in turns
+    tcfg = train_config(config, "bfloat16", 16)
+    module, anchors = build_model(tcfg.model, device="cuda", train=True,
+                                  generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(module, tcfg)
+    step = train.make_train_step(module, anchors, tcfg)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(np.random.default_rng(8), 16).items()}
+
+    def step_times(before):
+        with FrozenBnVariant(resnet, before):
+            return cuda_times_ms(lambda: step(state, batch), iters=10)
+
+    t = in_turns((False, True), step_times, rounds=3)
+    names = ("aten::mul", "aten::add", "aten::sub", "aten::addcmul", "aten::copy_")
+    prof = {}
+    for before in (False, True):
+        with FrozenBnVariant(resnet, before):
+            prof[before] = profile_op_ms(torch, lambda: step(state, batch), 3, names)
+    x = torch.randn(16, 3, 512, 512, device="cuda").contiguous(memory_format=torch.channels_last)
+
+    def train_forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            module(x, train=True)
+
+    layers_train = bn_layer_inputs(torch, resnet, module, train_forward)
+    bn_train = {b: bn_alone_ms(torch, resnet, layers_train, True, b) for b in (False, True)}
+    del module, state, step, batch
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    for before, label in ((False, "after"), (True, "before")):
+        ops, total = prof[before]
+        results[f"bn_{label}_detect_b16_bf16_images_per_s"] = 16e3 / float(np.median(d[before]))
+        results[f"bn_{label}_detect_b16_bf16_ms"] = float(np.median(d[before]))
+        results[f"bn_{label}_detect_b16_bf16_device_ms"] = d_dev[before]
+        results[f"bn_{label}_train_b16_bf16_step_ms"] = float(np.median(t[before]))
+        results[f"bn_{label}_train_step_aten_mul_ms"] = ops["aten::mul"]
+        results[f"bn_{label}_train_step_device_ms"] = total
+        results[f"bn_{label}_frozen_bn_train_step_ms"] = bn_train[before]
+        results[f"bn_{label}_frozen_bn_detect_b16_ms"] = bn_det[before]
+        log(f"[bn] {label} the repair ({smi}): detect b16 bf16 {spread(d[before])}, "
+            f"{16e3 / np.median(d[before]):.1f} images/s, device {d_dev[before]:.3f} ms per "
+            f"call (torch.profiler); train step b16 bf16 {spread(t[before])}; device ms per "
+            f"step (torch.profiler, 3 steps): all kernels {total:.3f}, "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
+            + f"; device ms (torch.profiler) of the {len(layers_train)} frozen BatchNorm calls "
+            f"of a step alone, forward and backward, {bn_train[before]:.3f}, and of the "
+            f"{len(layers_det)} of a detect b16 forward {bn_det[before]:.3f}")
+    results.update(bn_repair_float32_cost(torch, config, train, build_model, make_detect_fn,
+                                          resnet))
+    return results
+
+
+def bn_repair_float32_cost(torch, config, train, build_model, make_detect_fn, resnet):
+    """The repair's cost in float32, where it makes three float32 passes
+    (subtract, multiply, add) for the one addcmul before it: detect b16
+    float32 and the float32 b16 train step, before and after in turns, and
+    the frozen BatchNorm calls alone at their shapes."""
+    results = {}
+    cfg = serving_config(config, "float32").model
+    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    detect = make_detect_fn(module, anchors, cfg, device="cuda")
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
+
+    def detect_times(before):
+        with FrozenBnVariant(resnet, before):
+            return cuda_times_ms(lambda: detect(images), iters=15)
+
+    d = in_turns((False, True), detect_times, rounds=3)
+    d_dev = {}
+    for before in (False, True):
+        with FrozenBnVariant(resnet, before):
+            d_dev[before] = profile_op_ms(torch, lambda: detect(images), 5, ())[1]
+    with torch.inference_mode():
+        xn = (images.float() / 255.0).permute(0, 3, 1, 2)
+        layers_det = bn_layer_inputs(torch, resnet, module, lambda: module(xn))
+    bn_det = {b: bn_alone_ms(torch, resnet, layers_det, False, b) for b in (False, True)}
+    del module, detect
+    torch.cuda.empty_cache()
+
+    tcfg = train_config(config, "float32", 16)
+    module, anchors = build_model(tcfg.model, device="cuda", train=True,
+                                  generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(module, tcfg)
+    step = train.make_train_step(module, anchors, tcfg)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(np.random.default_rng(8), 16).items()}
+
+    def step_times(before):
+        with FrozenBnVariant(resnet, before):
+            return cuda_times_ms(lambda: step(state, batch), iters=10)
+
+    t = in_turns((False, True), step_times, rounds=3)
+    t_dev = {}
+    for before in (False, True):
+        with FrozenBnVariant(resnet, before):
+            t_dev[before] = profile_op_ms(torch, lambda: step(state, batch), 3, ())[1]
+    x = torch.randn(16, 3, 512, 512, device="cuda").contiguous(memory_format=torch.channels_last)
+    layers_train = bn_layer_inputs(torch, resnet, module, lambda: module(x, train=True))
+    bn_train = {b: bn_alone_ms(torch, resnet, layers_train, True, b) for b in (False, True)}
+    del module, state, step, batch
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    for before, label in ((False, "after"), (True, "before")):
+        results[f"bn_{label}_detect_b16_fp32_images_per_s"] = 16e3 / float(np.median(d[before]))
+        results[f"bn_{label}_detect_b16_fp32_ms"] = float(np.median(d[before]))
+        results[f"bn_{label}_detect_b16_fp32_device_ms"] = d_dev[before]
+        results[f"bn_{label}_train_b16_fp32_step_ms"] = float(np.median(t[before]))
+        results[f"bn_{label}_train_b16_fp32_step_device_ms"] = t_dev[before]
+        results[f"bn_{label}_frozen_bn_train_step_fp32_ms"] = bn_train[before]
+        results[f"bn_{label}_frozen_bn_detect_b16_fp32_ms"] = bn_det[before]
+        log(f"[bn] {label} the repair, float32 ({smi}): detect b16 fp32 {spread(d[before])}, "
+            f"{16e3 / np.median(d[before]):.1f} images/s, device {d_dev[before]:.3f} ms per "
+            f"call (torch.profiler); train step b16 fp32 {spread(t[before])}, device "
+            f"{t_dev[before]:.3f} ms per step (torch.profiler, 3 steps); device ms "
+            f"(torch.profiler) of the {len(layers_train)} "
+            f"frozen BatchNorm calls of a step alone, forward and backward, "
+            f"{bn_train[before]:.3f}, and of the {len(layers_det)} of a detect b16 forward "
+            f"{bn_det[before]:.3f}")
+    return results
+
+
+def kineto_intervals(torch, prof):
+    """The card's activity of a torch.profiler run as (stream, start_ns,
+    end_ns) triples, and the host's ranges as (name, start_ns, end_ns). The
+    spans of record_function ranges on the card's timeline cover idle gaps
+    and are left out."""
+    dev, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        start, dur = e.start_ns(), e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                dev.append((e.device_resource_id(), start, start + dur))
+        else:
+            host.append((e.name(), start, start + dur))
+    return dev, host
+
+
+def union_length(intervals, lo=None, hi=None):
+    """Total length of the union of (start, end) intervals, clipped to
+    [lo, hi] when given."""
+    spans = sorted((max(s, lo) if lo is not None else s, min(e, hi) if hi is not None else e)
+                   for s, e in intervals)
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def overlap_share(dev):
+    """Of the device time on the streams other than the busiest (the side
+    streams), the share that ran while the busiest stream had a kernel."""
+    by_stream = {}
+    for sid, s, e in dev:
+        by_stream.setdefault(sid, []).append((s, e))
+    main = max(by_stream, key=lambda k: union_length(by_stream[k]))
+    main_spans = sorted(by_stream[main])
+    side = [iv for k, v in by_stream.items() if k != main for iv in v]
+    side_time = sum(e - s for s, e in side)
+    both = 0
+    for s, e in side:
+        both += union_length([(ms, me) for ms, me in main_spans if me > s and ms < e], s, e)
+    return (both / side_time if side_time else 0.0), len(by_stream), len(side), side_time / 1e6
+
+
+def phase_pipelined(torch, train, build_model, matching_cuda, cfg, batches, tag):
+    """The pipelined step against the plain step: the same weights, batches
+    and generator seed give the same losses (within 1e-6 relative); step
+    times in turns; the share of the side stream's kernels that overlapped
+    the main stream's (torch.profiler over 3 steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
+    n = len(batches)
+    runs, losses = {}, {}
+    for pipelined in (False, True):
+        module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                      generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(module, cfg)
+        before = matching_cuda.launches
+        if pipelined:
+            prime, pstep = train.make_train_step_pipelined(module, anchors, cfg)
+            state, carry = prime(state, batches[0])
+            out = []
+            for nxt in batches[1:] + batches[:1]:
+                state, carry, m = pstep(state, carry, nxt)
+                out.append(float(m["loss"]))
+            runs[True] = (state, pstep, carry, module)
+        else:
+            step = train.make_train_step(module, anchors, cfg)
+            out = [float(step(state, b)[1]["loss"]) for b in batches]
+            runs[False] = (state, step, None, module)
+        if matching_cuda.launches - before != n:
+            raise RuntimeError(f"K2 ran {matching_cuda.launches - before} times in {n} steps")
+        losses[pipelined] = out
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses[True], losses[False]))
+    log(f"[pipelined] {tag}, prime + {n} steps: losses {losses[True]}; plain step on the same "
+        f"batches and generator {losses[False]}; worst relative difference {rel:.2e} "
+        f"(bound 1e-6); K2 launches {n} per run")
+    if not rel <= 1e-6:
+        raise RuntimeError(f"pipelined losses differ from the plain step's: {rel}")
+
+    holder = {"carry": runs[True][2]}
+
+    def steps(pipelined):
+        state, fn, _, _ = runs[pipelined]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        events[0].record()
+        for i, e in enumerate(events[1:]):
+            if pipelined:
+                _, holder["carry"], _ = fn(state, holder["carry"], batches[i % n])
+            else:
+                fn(state, batches[i % n])
+            e.record()
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
+
+    t = in_turns((True, False), steps, rounds=4)
+    state, pstep = runs[True][0], runs[True][1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            _, holder["carry"], _ = pstep(state, holder["carry"], batches[i % n])
+        torch.cuda.synchronize()
+    share, streams, side_n, side_ms = overlap_share(kineto_intervals(torch, prof)[0])
+    log(f"[pipelined] {tag}: step time in turns (4 rounds of 4) pipelined {spread(t[True])}, "
+        f"plain {spread(t[False])} ({nvidia_smi_line()}); {streams} streams; the side "
+        f"stream's {side_n} activities ({side_ms:.3f} ms over 3 steps) ran beside the main "
+        f"stream's kernels for {share:.3f} of their time")
+    del runs, holder
+    torch.cuda.empty_cache()
+    return {f"pipelined_{tag}_step_median_ms": float(np.median(t[True])),
+            f"pipelined_{tag}_step_p90_ms": float(np.percentile(t[True], 90)),
+            f"plain_{tag}_step_median_ms": float(np.median(t[False])),
+            f"plain_{tag}_step_p90_ms": float(np.percentile(t[False], 90)),
+            f"pipelined_{tag}_side_overlap_share": share,
+            f"pipelined_{tag}_loss_max_rel_diff": rel}
+
+
+class Tee:
+    """stdout that is printed with a prefix and kept."""
+
+    def __init__(self, prefix):
+        self.prefix, self.lines, self._buf = prefix, [], ""
+
+    def write(self, s):
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append(line)
+            sys.__stdout__.write(f"{self.prefix}{line}\n")
+        return len(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    @property
+    def text(self):
+        return "\n".join(self.lines + ([self._buf] if self._buf else []))
+
+
+def run_cli(main, argv):
+    """``main(argv)`` in this process with its stdout shown as [cli] lines;
+    returns the text."""
+    import contextlib
+
+    tee = Tee("[cli] ")
+    with contextlib.redirect_stdout(tee):
+        main(argv)
+    return tee.text
+
+
+def argparse_ns(**kw):
+    import argparse
+
+    return argparse.Namespace(**kw)
+
+
+APP_TRAIN = "synthetic://train?n=256&max_objects=8&aspect_std=0.6"
+APP_VAL = "synthetic://val?n=64&max_objects=8&aspect_std=0.6"
+
+
+def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, workdir):
+    """train_cli on config #3 (SSD-512 b32 float32, shape_weight 0.3) on a
+    512 px synthetic split: 24 steps, a val eval every 12 on 2 batches. K2
+    once per step, K1 once per eval batch, finite losses; the loop's ms per
+    step (host clock), its idle share on the card (torch.profiler over steps
+    17-20 launched under torch.profiler, on the card's own timeline) and the
+    Loader's ms per batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps, every, val_batches, workers = 24, 12, 2, 8
+    stamps, prof_box = [], {}
+    real = train.make_train_step
+
+    def timed_step_factory(*a, **k):
+        step = real(*a, **k)
+
+        def timed(state, batch):
+            i = len(stamps) + 1
+            if i == 17:
+                prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                prof_box["p"].__enter__()
+            if i == 21:
+                prof_box["p"].__exit__(None, None, None)
+            stamps.append(time.perf_counter())
+            with torch.profiler.record_function("cli_step"):
+                return step(state, batch)
+
+        return timed
+
+    ckpt = os.path.join(workdir, "app_ckpt")
+    argv = ["--config", "config3_ssd512_voc_train", "--data-root", APP_TRAIN,
+            "--steps", str(steps), "--eval-every", str(every), "--val-root", APP_VAL,
+            "--val-batches", str(val_batches), "--log-every", "4", "--workers", str(workers),
+            "--checkpoint-dir", ckpt]
+    train.make_train_step = timed_step_factory
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        text = run_cli(cli_train.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2, k1 = matching_cuda.launches, nms_cuda.launches
+    finally:
+        train.make_train_step = real
+    losses = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines()
+              if " loss=" in line]
+    evals = (steps // every) * val_batches
+    maps = [line.split("voc-mAP(val)=")[1].split()[0] for line in text.splitlines()
+            if "voc-mAP(val)=" in line]
+    if k2 != steps or k1 != evals:
+        raise RuntimeError(f"train_cli: K2 ran {k2} times in {steps} steps, K1 {k1} times "
+                           f"in {evals} eval batches")
+    if not (losses and all(np.isfinite(losses)) and f"done at step {steps}" in text
+            and len(maps) == steps // every):
+        raise RuntimeError(f"train_cli on config #3 did not finish cleanly: {text[-500:]}")
+    saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+    # the loop's step interval on the host clock over steps 5-12 (the eval
+    # at step 12 and the profiled steps 17-20 left out)
+    interval = float(np.median(np.diff(stamps[4:12]))) * 1e3
+    dev, host = kineto_intervals(torch, prof_box["p"])
+    steps_seen = sum(1 for name, _, _ in host if name == "cli_step")
+    if steps_seen != 4 or not dev:
+        raise RuntimeError(f"the profiled window holds {steps_seen} steps, {len(dev)} "
+                           "device activities")
+    # the card's own timeline: the host runs up to METRIC_LAG steps ahead
+    lo, hi = min(s for _, s, _ in dev), max(e for _, _, e in dev)
+    busy = union_length([(s, e) for _, s, e in dev])
+    idle = 1.0 - busy / (hi - lo)
+    log(f"[app] train_cli config #3 (SSD-512 b32 fp32, shape_weight 0.3), {steps} steps, eval "
+        f"every {every} on {val_batches} val batches ({nvidia_smi_line()}): wall {wall:.1f} s; "
+        f"losses {losses}; K2 launches {k2} (one per step), K1 {k1} (one per eval batch); "
+        f"checkpoints {saved}; voc-mAP {maps}")
+    log(f"[app] the loop: {interval:.3f} ms per step over steps 5-12 (host clock), "
+        f"{32e3 / interval:.1f} images/s; while steps 17-20 were launched under "
+        f"torch.profiler the card was busy {busy / 1e6:.3f} ms of the {(hi - lo) / 1e6:.3f} "
+        f"ms from its first activity to its last: idle share {idle:.3f}")
+
+    # the host Loader alone on the same split, with the same threads
+    from shape_based_object_detection_torch import config as config_lib
+    from shape_based_object_detection_torch.data.pipeline import Loader
+
+    cfg = config_lib.get_config("config3_ssd512_voc_train")
+    ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_TRAIN, split="train",
+                                                  ann_file=""))
+    loader = Loader(ds, 32, cfg.data.max_boxes, workers=workers)
+    it, per = loader.batches(0), []
+    next(it)
+    for _ in range(5):
+        t = time.perf_counter()
+        next(it)
+        per.append((time.perf_counter() - t) * 1e3)
+    loader.close()
+    log(f"[app] host Loader, b32 of the 512 px synthetic split, {workers} threads: "
+        f"{spread(np.array(per))} per batch (host clock)")
+    return ckpt, k1, k2, {"app_step_interval_ms": interval, "app_images_per_s": 32e3 / interval,
+                          "app_device_busy_ms": busy / 1e6,
+                          "app_device_window_ms": (hi - lo) / 1e6, "app_idle_share": idle,
+                          "app_wall_s": wall, "app_loader_batch_ms": float(np.median(per))}
+
+
+def phase_preempt(torch, cli_train, workdir):
+    """SIGTERM to a train_cli process on config #3 (b8): it finishes the
+    step, saves and exits 0; a rerun here restores that step, resumes the
+    data schedule there and runs to its end."""
+    import queue
+    import signal
+    import threading
+
+    ckpt = os.path.join(workdir, "preempt_ckpt")
+    common = ["--config", "config3_ssd512_voc_train", "--data-root",
+              "synthetic://train?n=256", "--batch-size", "8", "--log-every", "1",
+              "--workers", "4", "--checkpoint-dir", ckpt]
+    proc = subprocess.Popen([sys.executable, "-m", "shape_based_object_detection_torch.cli."
+                             "train_cli", *common, "--steps", "100000"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for x in proc.stdout:
+            lines.put(x)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    out, deadline = [], time.time() + 300
+    try:
+        while time.time() < deadline:
+            line = lines.get(timeout=max(1.0, deadline - time.time()))
+            if line is None:
+                break
+            out.append(line.rstrip())
+            if line.startswith("step 3 "):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rc = proc.wait(timeout=240)
+        while True:
+            line = lines.get(timeout=30)
+            if line is None:
+                break
+            out.append(line.rstrip())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    said = [x for x in out if x.startswith("preempted: checkpoint saved at step")]
+    if rc != 0 or not said:
+        raise RuntimeError(f"preemption: exit {rc}, output {out[-10:]}")
+    n = int(said[0].split()[-1])
+    text = run_cli(cli_train.main, [*common, "--steps", str(n + 2)])
+    want = [f"restored checkpoint at step {n}", f"resuming data schedule at epoch 0, batch {n}",
+            f"done at step {n + 2}"]
+    ok = all(w in text for w in want)
+    log(f"[resume] train_cli subprocess: SIGTERM after 'step 3' -> exit {rc}, '{said[0]}'; "
+        f"rerun: {want} all present: {ok} (32 steps per epoch)")
+    if not ok:
+        raise RuntimeError(f"resume: {text[-500:]}")
+
+
+def phase_ckpt_round_trip(torch, config, train, build_model, workdir):
+    """A checkpoint round trip on the card, SSD-512 (config #3) and
+    R50-FPN-512 with train_bn, with a bf16 momentum and an EMA, after 2
+    steps: parameters, buffers, momentum, EMA, step and the CUDA generator
+    state bit-equal; the save's blocking time, the write's and the size."""
+    from shape_based_object_detection_torch.checkpoint import CheckpointManager
+
+    results = {}
+    r50 = train_config(config, "float32", 2, ema_decay=0.999, momentum_dtype="bfloat16",
+                       warmup_steps=1)
+    r50 = dataclasses.replace(r50, model=dataclasses.replace(r50.model, train_bn=True))
+    ssd = ssd_train_config(config, 2, ema_decay=0.999, momentum_dtype="bfloat16",
+                           warmup_steps=1)
+    for tag, cfg, batch in (("ssd512", ssd, train_batch(np.random.default_rng(20), 2, g=100,
+                                                        classes=20)),
+                            ("r50_train_bn", r50, train_batch(np.random.default_rng(21), 2))):
+        module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                      generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(module, cfg)
+        step = train.make_train_step(module, anchors, cfg)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        mgr = CheckpointManager(os.path.join(workdir, f"rt_{tag}"), keep=1)
+        t = time.perf_counter()
+        mgr.save(state)
+        block = time.perf_counter() - t
+        mgr.wait()
+        write = time.perf_counter() - t - block
+        t = time.perf_counter()
+        mgr.save(state, 3)
+        block2 = time.perf_counter() - t
+        mgr.wait()
+        path = os.path.join(workdir, f"rt_{tag}", "3", "state.pt")
+        size = os.path.getsize(path)
+        other, _ = build_model(cfg.model, device="cuda", train=True,
+                               generator=torch.Generator().manual_seed(5))
+        t = time.perf_counter()
+        restored = mgr.restore_step(3, train.create_train_state(
+            other, cfg, generator=torch.Generator(device="cuda").manual_seed(99)))
+        torch.cuda.synchronize()
+        restore = time.perf_counter() - t
+        same = (all(torch.equal(a, b) for a, b in zip(module.state_dict().values(),
+                                                       other.state_dict().values()))
+                and all(torch.equal(a, b) for a, b in zip(state.opt_state.trace,
+                                                           restored.opt_state.trace))
+                and all(torch.equal(state.ema[k], restored.ema[k]) for k in state.ema)
+                and restored.step == 3 and restored.opt_state.count == state.opt_state.count
+                and torch.equal(restored.generator.get_state(), state.generator.get_state())
+                and restored.generator.device.type == "cuda"
+                and {m.dtype for m in restored.opt_state.trace} == {torch.bfloat16})
+        n_params = len(list(module.parameters()))
+        n_bufs = len(list(module.buffers()))
+        log(f"[resume] {tag} checkpoint round trip on the card ({n_params} parameters, "
+            f"{n_bufs} buffers, bf16 momentum, EMA; step 2; the CUDA generator's state): "
+            f"bit-equal={same}; save blocks {block * 1e3:.1f} ms, then {block2 * 1e3:.1f} ms "
+            f"when saved again, the write takes {write:.2f} s more on its thread, "
+            f"{size / 2**20:.1f} MiB; restore {restore:.2f} s ({nvidia_smi_line()})")
+        if not same:
+            raise RuntimeError(f"{tag} checkpoint round trip is not bit-equal")
+        mgr.close()
+        results.update({f"ckpt_{tag}_save_block_ms": block * 1e3,
+                        f"ckpt_{tag}_save_again_block_ms": block2 * 1e3,
+                        f"ckpt_{tag}_write_s": write, f"ckpt_{tag}_mib": size / 2**20,
+                        f"ckpt_{tag}_restore_s": restore})
+        del module, other, state, restored
+        torch.cuda.empty_cache()
+    return results
+
+
+def jittered_records(ev, seed):
+    """Detections made from the Evaluator's ground truth (each box jittered,
+    a random score, one label in ten changed), so mAP is far from 0."""
+    from shape_based_object_detection_torch.eval import DetectionRecord
+
+    rng = np.random.default_rng(seed)
+    dets = []
+    for g in ev.ground_truth:
+        n = len(g.labels)
+        boxes = np.asarray(g.boxes, np.float32) + rng.normal(0, 0.01, (n, 4)).astype(np.float32)
+        labels = np.where(rng.uniform(size=n) < 0.1, rng.integers(0, 20, n), g.labels)
+        dets.append(DetectionRecord(g.image_id, boxes, rng.uniform(0.1, 1, n).astype(np.float32),
+                                    labels))
+    return dets
+
+
+class KeptEvaluators:
+    """``with KeptEvaluators(eval_pkg) as made:`` keeps every Evaluator that
+    ``eval_pkg.Evaluator`` builds meanwhile in ``made``, so the records a
+    CLI fed it stay readable."""
+
+    def __init__(self, eval_pkg):
+        self.pkg, self.real, self.made = eval_pkg, eval_pkg.Evaluator, []
+
+    def __enter__(self):
+        made = self.made
+
+        class Kept(self.real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        self.pkg.Evaluator = Kept
+        return made
+
+    def __exit__(self, *exc):
+        self.pkg.Evaluator = self.real
+
+
+def records_equal(got, want):
+    """Whether two Evaluators hold the same records, element by element
+    (dtypes included): every detection's box, score and label, every
+    ground-truth box, label, ignore and crowd flag and area factor."""
+    def same(a, b):
+        return (a is None) == (b is None) and (a is None or (
+            a.dtype == b.dtype and np.array_equal(a, b)))
+
+    return (got.area_scale == want.area_scale
+            and len(got.detections) == len(want.detections) > 0
+            and len(got.ground_truth) == len(want.ground_truth)
+            and all(d.image_id == e.image_id and all(same(getattr(d, f), getattr(e, f))
+                                                     for f in ("boxes", "scores", "labels"))
+                    for d, e in zip(got.detections, want.detections))
+            and all(g.image_id == h.image_id and g.area_factor == h.area_factor
+                    and all(same(getattr(g, f), getattr(h, f))
+                            for f in ("boxes", "labels", "crowd", "ignore"))
+                    for g, h in zip(got.ground_truth, want.ground_truth)))
+
+
+def phase_eval(torch, config, train, build_model, cli_train, cli_eval, nms, nms_cuda,
+               detection, reset_counts, ckpt):
+    """eval_cli on the config #3 checkpoint (VOC and COCO, score threshold
+    0) against an in-process Evaluator fed by make_eval_step: the records
+    eval_cli fed its Evaluator equal element by element, and the metrics;
+    K1 bit-equal on the eval candidates and its time there; the C++ and
+    numpy matchers on jittered ground truth; eval_cli on config #2 (R50
+    b32, threshold 0)."""
+    import json as json_lib
+
+    from shape_based_object_detection_torch import eval as eval_pkg
+    from shape_based_object_detection_torch.checkpoint import CheckpointManager
+    from shape_based_object_detection_torch.data.pipeline import Loader
+    from shape_based_object_detection_torch.eval import coco_map, voc_map
+    from tests.torch_kernel_cases import nms_bit_equal
+
+    # threshold 0: a model 24 steps from random weights keeps few
+    # detections at the preset's 0.01, and scores mAP near 0 either way
+    zero = "model.detect.score_threshold=0.0"
+    argv = ["--config", "config3_ssd512_voc_train", "--data-root", APP_VAL,
+            "--checkpoint-dir", ckpt, "--per-class", "--set", zero]
+    got, launches, fed = {}, {}, {}
+    for protocol in ("voc", "coco"):
+        reset_counts()
+        with KeptEvaluators(eval_pkg) as made:
+            text = run_cli(cli_eval.main, [*argv, "--protocol", protocol])
+        torch.cuda.synchronize()
+        launches[protocol] = nms_cuda.launches
+        got[protocol] = json_lib.loads(text[text.index("{"):])
+        (fed[protocol],) = made
+    cfg = config.resolve_config("config3_ssd512_voc_train", [zero])
+    module, anchors = build_model(cfg.model, device="cuda", train=True)
+    state = CheckpointManager(ckpt).restore_latest(train.create_train_state(module, cfg))
+    ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_VAL, split="val", ann_file=""),
+                                 include_ignore=True)
+    loader = Loader(ds, cfg.data.batch_size, cfg.data.max_boxes, shuffle=False)
+    ev = cli_train.evaluate(train.make_eval_step(module, anchors, cfg), state, loader, cfg,
+                            torch.device("cuda"))
+    want = {"voc": ev.voc(), "coco": ev.coco()}
+
+    def same(a, b):
+        return all(k in a and (a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]))
+                   for k in b if k != "per_class")
+
+    records = all(records_equal(fed[p], ev) for p in fed)
+    equal = records and all(same(got[p], want[p]) for p in got)
+    n_dets = sum(len(d.scores) for d in ev.detections)
+    batches = -(-len(ds) // cfg.data.batch_size)
+    # K1 on the eval path's candidates, bit for bit, and its time there
+    b = next(loader.batches_padded())[0]
+    with torch.inference_mode():
+        x = detection.image_lib.normalize_images(torch.from_numpy(b.images).cuda())
+        cands = detection.select_candidates(*module(x.permute(0, 3, 1, 2)), anchors, cfg.model)
+    boxes, scores, cls, valid = cands
+    det = cfg.model.detect
+    shifted = nms.class_offset_boxes(boxes, cls)
+    bit, err, kept = nms_bit_equal(shifted, scores, valid, det.nms_iou_threshold,
+                                   det.max_detections)
+    log(f"[eval] eval_cli on the config #3 checkpoint, score threshold 0: voc mAP "
+        f"{got['voc']['mAP']:.6f}, coco mAP {got['coco']['mAP']:.6f} (AP50 "
+        f"{got['coco']['AP50']:.6f}); the records it fed its Evaluator ({len(ev.detections)} "
+        f"images, {n_dets} detections, {sum(len(g.labels) for g in ev.ground_truth)} GT "
+        f"boxes) equal element by element to those make_eval_step feeds one: {records}; "
+        f"metrics equal: {equal}; K1 launches {launches} for {batches} batches each")
+    log(f"[kernel] nms_greedy on the config #3 eval candidates (B, N, M)=({scores.shape[0]}, "
+        f"{scores.shape[1]}, {det.max_detections}): {int(valid.sum())} valid, bit-equal={bit}, "
+        f"kept={kept}")
+    if not (equal and bit and all(v == batches for v in launches.values())):
+        raise RuntimeError(f"eval: equal {equal}, K1 bit-equal {bit}, launches {launches}")
+    timing = nms_timing(nms, nms_cuda, cands, det, "config #3's eval candidates")
+    timing["max_abs_err"] = err
+
+    # the matchers on jittered ground truth: equal and far from 0
+    dets = jittered_records(ev, 22)
+    scores_m = {}
+    for matcher in ("native", "numpy"):
+        t = time.perf_counter()
+        scores_m[matcher] = (voc_map(dets, ev.ground_truth, matcher=matcher)["mAP"],
+                             coco_map(dets, ev.ground_truth, area_scale=512.0,
+                                      matcher=matcher)["mAP"])
+        scores_m[matcher] += (time.perf_counter() - t,)
+    agree = scores_m["native"][:2] == scores_m["numpy"][:2] and min(scores_m["native"][:2]) > 0
+    log(f"[eval] with jittered ground truth as detections ({len(dets)} images): voc mAP "
+        f"{scores_m['native'][0]:.6f}, coco mAP {scores_m['native'][1]:.6f}; C++ and numpy "
+        f"matchers equal and non-zero: {agree} (voc+coco host seconds: C++ "
+        f"{scores_m['native'][2]:.3f}, numpy {scores_m['numpy'][2]:.3f})")
+    if not agree:
+        raise RuntimeError(f"matchers disagree or score 0: {scores_m}")
+    del module, state
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    text = run_cli(cli_eval.main, ["--config", "config2_retinanet_r50_infer", "--data-root",
+                                   "synthetic://val?n=64", "--max-batches", "2", "--protocol",
+                                   "voc", "--set", "model.detect.score_threshold=0.0"])
+    torch.cuda.synchronize()
+    k1_r50 = nms_cuda.launches
+    m = json_lib.loads(text[text.index("{"):])
+    log(f"[eval] eval_cli config #2 (R50-FPN-512 b32, fresh weights, threshold 0): voc mAP "
+        f"{m['mAP']:.6f}, K1 launches {k1_r50} for 2 batches at (32, 1000, 100)")
+    if k1_r50 != 2:
+        raise RuntimeError(f"eval_cli config #2: K1 ran {k1_r50} times for 2 batches")
+    return timing, launches["voc"], k1_r50, {
+        "eval_voc_map": got["voc"]["mAP"], "eval_coco_map": got["coco"]["mAP"],
+        "eval_jittered_voc_map": scores_m["native"][0],
+        "eval_jittered_coco_map": scores_m["native"][1],
+        "eval_native_matcher_s": scores_m["native"][2],
+        "eval_numpy_matcher_s": scores_m["numpy"][2]}
+
+
+def phase_loader(torch):
+    """Loader.device_batches on the card: batches bit-equal to the host
+    batches, staged pinned; one b32 batch's H2D time against the card's
+    pinned H2D rate measured here."""
+    from shape_based_object_detection_torch.data.pipeline import Loader, pin_batch
+    from shape_based_object_detection_torch.data.synthetic import SyntheticDetection
+
+    loader = Loader(SyntheticDetection(size=512, num_images=96, num_classes=20, max_objects=8),
+                    32, 100, seed=1, workers=8)
+    host = list(loader.batches(0))
+    dev = list(loader.device_batches(0))
+    equal = len(host) == len(dev) == 3 and all(
+        np.array_equal(a, b.cpu().numpy()) for h, d in zip(host, dev) for a, b in zip(h, d))
+    pinned = pin_batch(host[0])
+    is_pinned = all(t.is_pinned() for t in pinned)
+    nbytes = sum(t.numel() * t.element_size() for t in pinned)
+    h2d = cuda_times_ms(lambda: [t.to("cuda", non_blocking=True) for t in pinned], iters=20)
+    big = torch.empty(512 * 2**20, dtype=torch.uint8, pin_memory=True)
+    rate_ms = float(np.median(cuda_times_ms(lambda: big.to("cuda", non_blocking=True),
+                                            iters=5)))
+    rate = big.numel() / rate_ms / 1e6  # GB/s
+    bound = nbytes / rate / 1e6
+    loader.close()
+    log(f"[loader] device_batches: 3 b32 batches bit-equal to the host batches: {equal}; "
+        f"staged pinned: {is_pinned}; H2D of one batch ({nbytes} bytes, pinned, non_blocking) "
+        f"{spread(h2d)}; the card's pinned H2D rate {rate:.2f} GB/s (512 MiB copy, "
+        f"{rate_ms:.3f} ms), so a batch's bound is {bound:.3f} ms ({nvidia_smi_line()})")
+    if not (equal and is_pinned):
+        raise RuntimeError(f"device_batches: equal {equal}, pinned {is_pinned}")
+    return {"h2d_b32_ms": float(np.median(h2d)), "h2d_b32_bytes": nbytes,
+            "pinned_h2d_gb_per_s": rate, "h2d_b32_bound_ms": bound}
+
+
+def phase_cli_match_timing(torch, config, matching, matching_cuda, cli_train):
+    """K2 on the CLI path's batch, a b32 batch of the train_cli split
+    augmented as the step augments it (config #3, shape_weight 0.3): held
+    against the plain version (assignments and best_q bit-equal), then
+    timed. Returns the timing with the worst |difference| over best_q and
+    reg as ``max_abs_err``."""
+    from shape_based_object_detection_torch.data.augment import augment_batch
+    from shape_based_object_detection_torch.data.pipeline import Loader
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+    from tests.torch_kernel_cases import match_check
+
+    cfg = config.get_config("config3_ssd512_voc_train")
+    ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_TRAIN, split="train",
+                                                  ann_file=""))
+    b = next(Loader(ds, 32, cfg.data.max_boxes, seed=cfg.train.seed).batches(0))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed)
+    _, gt, lbl, ok = augment_batch(gen, *(torch.from_numpy(getattr(b, k)).cuda() for k in
+                                          ("images", "boxes", "labels", "valid")),
+                                   cfg.data, cfg.model.image_size)
+    anchors = anchors_for_model(cfg.model).cuda()
+    gt, lbl, ok = gt.contiguous(), lbl.contiguous(), ok.contiguous()
+    passed, err, line = match_check(anchors, gt, lbl, ok, cfg.match.shape_weight,
+                                    cfg.model.anchors.variances, cfg=cfg.match, exact=True)
+    log(f"[kernel] match_anchors on train_cli's augmented batch (B, A, G)=(32, "
+        f"{anchors.shape[0]}, {ok.shape[1]}), {int(ok.sum())} valid GTs, shape_weight "
+        f"{cfg.match.shape_weight}: {line}")
+    if not passed:
+        raise RuntimeError("match_anchors differs from the plain version on train_cli's batch")
+    timing = match_timing(torch, matching, matching_cuda, anchors, cfg,
+                          "train_cli's augmented batch", gt, lbl, ok)
+    timing["max_abs_err"] = err
+    return timing
+
+
+PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader")
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help=f"run only these comma-separated phase groups of {PHASES} "
+                             "(a partial run prints no result line)")
+    args = parser.parse_args()
+    only = set(args.only.split(",")) - {""}
+    if only - set(PHASES):
+        parser.error(f"unknown phase groups {sorted(only - set(PHASES))}")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from shape_based_object_detection_torch import config, detection, serving, train
-    from shape_based_object_detection_torch.detection import make_detect_fn
-    from shape_based_object_detection_torch.models.factory import build_model
-    from shape_based_object_detection_torch.ops import matching, matching_cuda, nms, nms_cuda
-    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+    from shape_based_object_detection_torch.utils import image as image_lib
     from shape_based_object_detection_torch.utils import native
+
+    def want(group):
+        return not only or group in only
 
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
-        list(pool.map(native.build, KERNELS))
-    for name in KERNELS:
+    libs = KERNELS + ("ap_matcher",)
+    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one compiler per source
+        # the JPEG decoder is built as DataConfig's "auto" resolves it: where
+        # it does not build (no libjpeg), "auto" is PIL and the reason shows
+        decoder = pool.submit(image_lib.effective_decode_backend, "auto")
+        list(pool.map(native.build, libs))
+        backend = decoder.result()
+    for name in libs:
         native.load(name)
-    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in parallel and loaded "
-        f"in {time.perf_counter() - t:.2f} s")
+    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} (nvcc) and "
+        f"{', '.join(k + '.cpp' for k in HOST_LIBRARIES)} (g++) built in parallel and "
+        f"loaded in {time.perf_counter() - t:.2f} s; the host JPEG decode backend 'auto' is "
+        + (repr(backend) if backend == "native"
+           else f"{backend!r} ({image_lib.AUTO_BACKEND_REASON})"))
+    workdir = os.path.join(ROOT, "tmp", "smoke_work")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        return run_phases(torch, want, only, t0, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_phases(torch, want, only, t0, workdir) -> int:
+    """The phase groups in order, then the result lines."""
+    from shape_based_object_detection_torch import config, detection, serving, train
+    from shape_based_object_detection_torch.cli import eval_cli as cli_eval
+    from shape_based_object_detection_torch.cli import train_cli as cli_train
+    from shape_based_object_detection_torch.data.augment import augment_batch
+    from shape_based_object_detection_torch.detection import make_detect_fn
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching, matching_cuda, nms, nms_cuda
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
 
     def reset_counts():
         """Every kernel's launch count to 0, just before a path is driven."""
         nms_cuda.launches = 0
         matching_cuda.launches = 0
 
-    nms_err = phase_kernel(torch, nms, nms_cuda)
-    phase_forward(torch, config, build_model, make_detect_fn)
-    nms_launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection,
-                                      reset_counts)
-    timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
-                          nms, nms_cuda)
-    match_err = phase_match_kernel(torch, config, anchors_for_model)
-    phase_train_check(torch, config, train, build_model)
-    trained = phase_training(torch, train, build_model, matching_cuda, nms_cuda,
-                             reset_counts, train_config(config, "bfloat16", 16),
-                             train_batch(np.random.default_rng(8), 16),
-                             "bf16 R50-FPN-512 trainer b16")
-    match_launches = trained[-1]
-    train_timing = phase_train_timing(torch, train, matching, matching_cuda,
-                                      *trained[:-1], tag="train_b16_bf16")
-    train_timing.update(phase_train_profile(
-        torch, trained[0], trained[1], trained[5],
-        train_timing["train_b16_bf16_step_median_ms"], "train_b16_bf16"))
-    del trained
+    results, k1, k2 = {}, {}, {}
+    if want("base"):
+        nms_err = phase_kernel(torch, nms, nms_cuda)
+        phase_forward(torch, config, build_model, make_detect_fn)
+        nms_launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection,
+                                          reset_counts)
+        timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
+                              nms, nms_cuda)
+        match_err = phase_match_kernel(torch, config, anchors_for_model)
+        phase_train_check(torch, config, train, build_model)
+        trained = phase_training(torch, train, build_model, matching_cuda, nms_cuda,
+                                 reset_counts, train_config(config, "bfloat16", 16),
+                                 train_batch(np.random.default_rng(8), 16),
+                                 "bf16 R50-FPN-512 trainer b16")
+        match_launches = trained[-1]
+        train_timing = phase_train_timing(torch, train, matching, matching_cuda,
+                                          *trained[:-1], tag="train_b16_bf16")
+        train_timing.update(phase_train_profile(
+            torch, trained[0], trained[1], trained[5],
+            train_timing["train_b16_bf16_step_median_ms"], "train_b16_bf16"))
+        del trained
 
-    # the SSD family: config #3's matching, then SSD300 serving, then SSD-512
-    # training, remat, and trainable BatchNorm on R50-FPN-512
-    from shape_based_object_detection_torch.data.augment import augment_batch
+        # the SSD family: config #3's matching, then SSD300 serving, then
+        # SSD-512 training, remat, and trainable BatchNorm on R50-FPN-512
+        ssd_match_err = phase_ssd_match_kernel(torch, config, anchors_for_model, augment_batch)
+        phase_ssd_forward(torch, config, build_model, make_detect_fn)
+        ssd_nms_launches, preds = phase_ssd_serving(torch, config, serving, nms_cuda,
+                                                    reset_counts)
+        ssd_timing = phase_ssd_timing(torch, detection, nms, nms_cuda, preds)
+        del preds
+        ssd_cfg = ssd_train_config(config, 2, warmup_steps=1, lr_decay_steps=(60_000, 80_000))
+        ssd_cfg = dataclasses.replace(ssd_cfg, model=dataclasses.replace(
+            ssd_cfg.model, precision="highest"))
+        train_check(torch, train, build_model, ssd_cfg,
+                    train_batch(np.random.default_rng(17), 2, g=100, classes=20),
+                    "SSD-512 (config #3, shape_weight 0.3)")
+        ssd_cfg = ssd_train_config(config, 32)
+        ssd_trained = phase_training(
+            torch, train, build_model, matching_cuda, nms_cuda, reset_counts, ssd_cfg,
+            train_batch(np.random.default_rng(18), 32, g=100, classes=20),
+            "SSD-512 config #3 trainer (fp32, b32, shape_weight 0.3)")
+        ssd_match_launches = ssd_trained[-1]
+        ssd_train_timing = phase_train_timing(torch, train, matching, matching_cuda,
+                                              *ssd_trained[:-1], tag="ssd512_train_b32_fp32",
+                                              ties=False)
+        ssd_train_timing.update(phase_train_profile(
+            torch, ssd_trained[0], ssd_trained[1], ssd_trained[5],
+            ssd_train_timing["ssd512_train_b32_fp32_step_median_ms"],
+            "ssd512_train_b32_fp32"))
+        state, _, module, anchors, ssd_cfg, batch, _ = ssd_trained
+        del ssd_trained, state
+        ssd_train_timing.update(phase_remat(torch, train, build_model, module, anchors,
+                                            ssd_cfg, batch))
+        del module, batch
+        torch.cuda.empty_cache()
+        phase_train_bn(torch, config, train, build_model)
+        results.update({**e2e, **{k: v for k, v in timing.items() if k != "nms"},
+                        **{k: v for k, v in train_timing.items() if k != "match"},
+                        **{k: v for k, v in ssd_timing.items() if k != "nms"},
+                        **{k: v for k, v in ssd_train_timing.items() if k != "match"}})
+        ssd_nms, ssd_match = ssd_timing["nms"], ssd_train_timing["match"]
+        k1.update({
+            "launches": nms_launches,  # the serving path's
+            "bit_equal": True,  # phase_kernel raises on any differing bit
+            "max_abs_err": nms_err,
+            **timing["nms"],
+            "library_ms": None,
+            # the SSD300 serving path's launches, and K1 at (16, 400, 200) there
+            "ssd_launches": ssd_nms_launches,
+            "ssd_max_abs_err": ssd_nms["max_abs_err"],
+            **{f"ssd_{k}": v for k, v in ssd_nms.items() if k != "max_abs_err"}})
+        k2.update({
+            "launches": match_launches,  # the training path's
+            "bit_equal": True,  # assignments; phase_match_kernel raises otherwise
+            "max_abs_err": match_err,
+            **train_timing["match"],
+            "library_ms": None,
+            # the SSD-512 trainer's launches, and K2 at (32, 24564, 100) with
+            # shape_weight 0.3 there
+            "ssd_launches": ssd_match_launches,
+            "ssd_max_abs_err": ssd_match_err,
+            **{f"ssd_{k}": v for k, v in ssd_match.items()}})
 
-    ssd_match_err = phase_ssd_match_kernel(torch, config, anchors_for_model, augment_batch)
-    phase_ssd_forward(torch, config, build_model, make_detect_fn)
-    ssd_nms_launches, preds = phase_ssd_serving(torch, config, serving, nms_cuda,
-                                                reset_counts)
-    ssd_timing = phase_ssd_timing(torch, detection, nms, nms_cuda, preds)
-    del preds
-    ssd_cfg = ssd_train_config(config, 2, warmup_steps=1, lr_decay_steps=(60_000, 80_000))
-    ssd_cfg = dataclasses.replace(ssd_cfg, model=dataclasses.replace(
-        ssd_cfg.model, precision="highest"))
-    train_check(torch, train, build_model, ssd_cfg,
-                train_batch(np.random.default_rng(17), 2, g=100, classes=20),
-                "SSD-512 (config #3, shape_weight 0.3)")
-    ssd_cfg = ssd_train_config(config, 32)
-    ssd_trained = phase_training(
-        torch, train, build_model, matching_cuda, nms_cuda, reset_counts, ssd_cfg,
-        train_batch(np.random.default_rng(18), 32, g=100, classes=20),
-        "SSD-512 config #3 trainer (fp32, b32, shape_weight 0.3)")
-    ssd_match_launches = ssd_trained[-1]
-    ssd_train_timing = phase_train_timing(torch, train, matching, matching_cuda,
-                                          *ssd_trained[:-1], tag="ssd512_train_b32_fp32",
-                                          ties=False)
-    ssd_train_timing.update(phase_train_profile(
-        torch, ssd_trained[0], ssd_trained[1], ssd_trained[5],
-        ssd_train_timing["ssd512_train_b32_fp32_step_median_ms"], "ssd512_train_b32_fp32"))
-    state, _, module, anchors, ssd_cfg, batch, _ = ssd_trained
-    del ssd_trained, state
-    ssd_train_timing.update(phase_remat(torch, train, build_model, module, anchors,
-                                        ssd_cfg, batch))
-    del module, batch
-    torch.cuda.empty_cache()
-    phase_train_bn(torch, config, train, build_model)
+    # the training application
+    if want("bn"):
+        results.update(phase_bn_repair(torch, config, train, build_model, make_detect_fn))
+    if want("pipelined"):
+        results.update(phase_pipelined(
+            torch, train, build_model, matching_cuda, train_config(config, "bfloat16", 16),
+            [train_batch(np.random.default_rng(30 + i), 16) for i in range(4)],
+            "r50_b16_bf16"))
+        results.update(phase_pipelined(
+            torch, train, build_model, matching_cuda, ssd_train_config(config, 32),
+            [train_batch(np.random.default_rng(40 + i), 32, g=100, classes=20)
+             for i in range(4)], "ssd512_b32_fp32"))
+    if want("app"):
+        ckpt, cli_k1, cli_k2, app = phase_app(torch, train, cli_train, nms_cuda,
+                                              matching_cuda, reset_counts, workdir)
+        results.update(app)
+        phase_preempt(torch, cli_train, workdir)
+        eval_k1, eval_launches, config2_launches, ev = phase_eval(
+            torch, config, train, build_model, cli_train, cli_eval, nms, nms_cuda, detection,
+            reset_counts, ckpt)
+        results.update(ev)
+        cli_match = phase_cli_match_timing(torch, config, matching, matching_cuda, cli_train)
+        # K1 once per eval batch in train_cli and eval_cli; its time and bound
+        # at (32, 400, 200) on config #3's eval candidates
+        k1.update({"cli_launches": cli_k1, "cli_eval_launches": eval_launches,
+                   "cli_eval_config2_launches": config2_launches,
+                   "cli_max_abs_err": eval_k1.pop("max_abs_err"),
+                   **{f"cli_{k}": v for k, v in eval_k1.items()}})
+        # K2 once per train_cli step; its time and bound on the CLI's batch
+        k2.update({"cli_launches": cli_k2, "cli_max_abs_err": cli_match.pop("max_abs_err"),
+                   **{f"cli_{k}": v for k, v in cli_match.items()}})
+    if want("ckpt"):
+        results.update(phase_ckpt_round_trip(torch, config, train, build_model, workdir))
+    if want("loader"):
+        results.update(phase_loader(torch))
 
-    log(json.dumps({**e2e, **{k: v for k, v in timing.items() if k != "nms"},
-                    **{k: v for k, v in train_timing.items() if k != "match"},
-                    **{k: v for k, v in ssd_timing.items() if k != "nms"},
-                    **{k: v for k, v in ssd_train_timing.items() if k != "match"}}))
-    ssd_nms = ssd_timing["nms"]
-    ssd_match = ssd_train_timing["match"]
+    log(json.dumps(results))
+    if only:
+        log(f"[partial] phase groups {sorted(only)} passed in "
+            f"{time.perf_counter() - t0:.1f} s; no result line for a partial run")
+        return 0
     kernels = [{
         "name": "nms_greedy",
         "route": "cuda",
         "source": "shape_based_object_detection_torch/csrc/nms_greedy.cu",
         "replaces": "shape_based_object_detection_tpu/ops/nms_pallas.py:33",
-        "launches": nms_launches,  # the serving path's
-        "bit_equal": True,  # phase_kernel raises on any differing bit
-        "max_abs_err": nms_err,
-        **timing["nms"],
-        "library_ms": None,
-        # the SSD300 serving path's launches, and K1 at (16, 400, 200) there
-        "ssd_launches": ssd_nms_launches,
-        "ssd_max_abs_err": ssd_nms["max_abs_err"],
-        **{f"ssd_{k}": v for k, v in ssd_nms.items() if k != "max_abs_err"},
+        **k1,
     }, {
         "name": "match_anchors",
         "route": "cuda",
         "source": "shape_based_object_detection_torch/csrc/match_anchors.cu",
         "replaces": "shape_based_object_detection_tpu/ops/matching_pallas.py:72",
-        "launches": match_launches,  # the training path's
-        "bit_equal": True,  # assignments; phase_match_kernel raises otherwise
-        "max_abs_err": match_err,
-        **train_timing["match"],
-        "library_ms": None,
-        # the SSD-512 trainer's launches, and K2 at (32, 24564, 100) with
-        # shape_weight 0.3 there
-        "ssd_launches": ssd_match_launches,
-        "ssd_max_abs_err": ssd_match_err,
-        **{f"ssd_{k}": v for k, v in ssd_match.items()},
+        **k2,
     }]
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t0:.1f} s")

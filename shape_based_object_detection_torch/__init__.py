@@ -11,6 +11,9 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
   - ``train.create_train_state(module, cfg)`` and
     ``train.make_train_step(module, anchors, cfg)`` -> step(state, batch),
     with the module from ``build_model(cfg.model, train=True)``
+    (``make_train_step_pipelined`` -> prime, step)
+  - ``python -m shape_based_object_detection_torch.cli.train_cli`` and
+    ``.cli.eval_cli`` (``--device cpu`` for the CPU)
 """
 
 __version__ = "0.1.0"

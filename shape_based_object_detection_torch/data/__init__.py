@@ -1,1 +1,3 @@
-"""Training data on the device: ``augment`` (the train-time augmentation)."""
+"""Input pipeline: host decode and batching (``synthetic``, ``voc``,
+``coco``, ``pipeline``), and the train-time augmentation on the device
+(``augment``)."""

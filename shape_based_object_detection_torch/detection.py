@@ -77,14 +77,14 @@ def run_nms(
     if det.soft_nms_sigma > 0:
         raise NotImplementedError(
             "soft-NMS is not ported yet (ROADMAP.md, modules still to port, "
-            "item 11)")
+            "item 6)")
     backend = backend or det.nms_backend
     if backend == "auto":
         backend = "cuda" if cand_boxes.is_cuda else "plain"
     if backend == "matrix":
         raise NotImplementedError(
             "the matrix NMS backend is not ported yet (ROADMAP.md, modules "
-            "still to port, item 11)")
+            "still to port, item 6)")
     if backend not in _NMS_BACKENDS:
         raise ValueError(f"unknown nms_backend {backend!r}")
     args = (cand_boxes, cand_scores, cand_classes, cand_valid,
@@ -117,7 +117,7 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
     if cfg.detect.tta_hflip:
         raise NotImplementedError(
             "hflip test-time augmentation is not ported yet (ROADMAP.md, "
-            "modules still to port, item 11)")
+            "modules still to port, item 6)")
     dev = resolve_device(device)
     param = next(module.parameters())
     if param.device != dev or anchors_cxcywh.device != dev:

@@ -42,10 +42,12 @@ def run_segment(fn: Callable, *args, remat: bool = False):
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW channels.
 
-    Frozen (running statistics, one fused multiply-add per element) unless
-    ``train_bn`` and the call's ``train`` are both set. Then it normalises
-    with the batch's mean and *biased* variance, in float32 as flax computes
-    them (``max(E[x^2] - E[x]^2, 0)``), and keeps them in ``pending``: the
+    Frozen (running statistics) unless ``train_bn`` and the call's ``train``
+    are both set. Frozen, it computes in float32 in flax's order and rounds
+    to the input's type once, so a bf16 output is bit-equal to flax's. With
+    both set it normalises with the batch's mean and *biased* variance, in
+    float32 as flax computes them (``max(E[x^2] - E[x]^2, 0)``), and keeps
+    them in ``pending``: the
     train step folds them into the running statistics once, after backward
     (``apply_batch_stats``), as the reference's statistics leave its step
     once through the aux output. A forward recomputed under remat finds
@@ -67,10 +69,13 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         if not (self.train_bn and train):
+            # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias in
+            # float32 (x - mean promotes a bf16 x without a cast of its own),
+            # rounded to the input's type once
             mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-            shift = self.bias.float() - self.running_mean.float() * mul
-            return torch.addcmul(shift.to(x.dtype).view(shape), x,
-                                 mul.to(x.dtype).view(shape))
+            y = ((x - self.running_mean.float().view(shape)) * mul.view(shape)
+                 + self.bias.float().view(shape))
+            return y.to(x.dtype)
         xf = x.float()
         mean = xf.mean((0, 2, 3))
         var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(), min=0.0)

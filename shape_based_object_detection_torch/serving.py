@@ -20,7 +20,7 @@ from shape_based_object_detection_torch.detection import make_detect_fn
 from shape_based_object_detection_torch.models.factory import build_model
 from shape_based_object_detection_torch.utils.device import resolve_device
 from shape_based_object_detection_torch.utils.image import (
-    boxes_norm_to_original_px, letterbox_image_host,
+    boxes_norm_to_original_px, letterbox_image_host, load_resized_image_host,
 )
 
 
@@ -32,11 +32,15 @@ class Detection:
 
 
 def prepare_batch(images: Sequence, size: int, batch_size: int,
-                  letterbox: bool = False) -> Tuple[np.ndarray, list]:
+                  letterbox: bool = False,
+                  decode_backend: str = "auto") -> Tuple[np.ndarray, list]:
     """Resize (BILINEAR) and zero-pad a request of <= batch_size images to
-    the batch shape. Each item is a decoded (H, W, 3) uint8 array or a
-    pre-resized pair ``((size, size, 3) uint8, (h, w))``. Returns
-    (batch (B, size, size, 3) uint8, original (h, w) sizes)."""
+    the batch shape. Each item is a decoded (H, W, 3) uint8 array, a file
+    path or encoded image bytes (decoded and resized on the host by
+    ``load_resized_image_host``: JPEGs through the native decoder unless
+    ``decode_backend`` is "pil"), or a pre-resized pair ``((size, size, 3)
+    uint8, (h, w))``. Returns (batch (B, size, size, 3) uint8, original
+    (h, w) sizes)."""
     from PIL import Image
 
     if len(images) > batch_size:
@@ -58,9 +62,10 @@ def prepare_batch(images: Sequence, size: int, batch_size: int,
             sizes.append((int(h), int(w)))
             continue
         if not isinstance(img, np.ndarray):
-            raise NotImplementedError(
-                "paths and encoded bytes (the native JPEG decode) are not "
-                "ported yet; pass decoded (H, W, 3) uint8 arrays")
+            batch[i], h, w = load_resized_image_host(img, size, letterbox,
+                                                     backend=decode_backend)
+            sizes.append((h, w))
+            continue
         h, w = img.shape[:2]
         sizes.append((h, w))
         if letterbox:
@@ -99,7 +104,7 @@ class Predictor:
         if quantize is not False:
             raise NotImplementedError(
                 "quantized serving tiers are not ported yet (ROADMAP.md, "
-                "modules still to port, item 11)")
+                "modules still to port, item 6)")
         self.cfg = cfg
         self.batch_size = batch_size
         self.min_score = min_score
@@ -126,7 +131,7 @@ class Predictor:
         for i in range(0, len(images), self.batch_size):
             chunk = images[i:i + self.batch_size]
             batch, sizes = prepare_batch(chunk, self.size, self.batch_size,
-                                         self.letterbox)
+                                         self.letterbox, self.cfg.data.decode_backend)
             det = self._detect(self._upload(batch))
             if pending is not None:
                 out.extend(unpack_detections(*pending, self.min_score,

@@ -26,7 +26,7 @@ move once per step, after backward, however often remat recomputed them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -347,11 +347,76 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
     return train_step
 
 
-def make_train_step_pipelined(module, anchors, cfg: ExperimentConfig):
-    raise NotImplementedError(
-        "the pipelined train step (augment of batch i+1 inside step i) is not "
-        "ported yet (ROADMAP.md, modules still to port, item 8, the pipelined "
-        "step)")
+class Carry(NamedTuple):
+    """An augmented batch waiting for its step: normalized NHWC images,
+    boxes, labels, valid, and (on the card) the side stream's event after
+    which they are ready. A plain 4-tuple is a carry that is ready."""
+
+    images: torch.Tensor
+    boxes: torch.Tensor
+    labels: torch.Tensor
+    valid: torch.Tensor
+    ready: Optional[torch.cuda.Event] = None
+
+
+def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
+                              cfg: ExperimentConfig, device=None):
+    """The software-pipelined step: augmentation runs one batch ahead.
+
+    Returns ``(prime, step)``:
+      ``prime(state, batch) -> (state, carry)`` augments batch 0;
+      ``step(state, carry, next_batch) -> (state, carry', metrics)`` runs
+      grad+update on ``carry`` and augments ``next_batch`` into ``carry'``.
+
+    Feed batch i+1 to step i; the last step may be fed any batch. The
+    augmentation draws from ``state.generator`` in the plain step's order
+    (batch 0, 1, 2, ...), so the losses equal ``make_train_step``'s on the
+    same batches and generator. On the card the augmentation runs on a
+    second CUDA stream: every draw is made there, in that order, and the
+    main stream waits on the carry's event before it consumes it; the
+    tensors that cross streams are ``record_stream``-ed so the caching
+    allocator does not hand their memory out early."""
+    dev = _on_device(module, anchors, device)
+    opt = make_optimizer(cfg.train)
+    loss_fn = make_loss_fn(module, anchors, cfg)
+    mask = list(decay_mask(module).values())
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def augment(state: TrainState, batch: Batch) -> Carry:
+        if side is None:
+            return Carry(*augment_batch(state.generator, *_batch_on(batch, dev),
+                                        cfg.data, cfg.model.image_size))
+        main = torch.cuda.current_stream(dev)
+        # the batch may have been written on the main stream (an upload)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            raw = _batch_on(batch, dev)
+            out = augment_batch(state.generator, *raw, cfg.data, cfg.model.image_size)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        for t in raw:
+            t.record_stream(side)
+        for t in out:
+            t.record_stream(main)
+        return Carry(*out, ready)
+
+    def prime(state: TrainState, batch: Batch) -> Tuple[TrainState, Carry]:
+        return state, augment(state, batch)
+
+    def step(state: TrainState, carry, next_batch: Batch):
+        images, boxes, labels, valid = (torch.as_tensor(t).to(dev) for t in carry[:4])
+        ready = carry.ready if isinstance(carry, Carry) else None
+        # the next batch's augmentation is queued first, so the side stream
+        # runs it while the main stream takes this step's grad and update
+        new_carry = augment(state, next_batch)
+        if ready is not None:
+            torch.cuda.current_stream(dev).wait_event(ready)
+        x = images.permute(0, 3, 1, 2)
+        state, metrics = _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
+                                          labels, valid)
+        return state, new_carry, metrics
+
+    return prime, step
 
 
 def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,

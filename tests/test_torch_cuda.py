@@ -272,3 +272,107 @@ def test_train_bn_statistics_move_once_under_remat_on_the_card():
         torch.testing.assert_close(stats[True][name], want, rtol=0, atol=1e-6)
     assert not torch.equal(stats[False]["backbone.bn1.running_mean"],
                            torch.zeros_like(stats[False]["backbone.bn1.running_mean"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["retinanet", "ssd"])
+def test_pipelined_step_equals_plain_on_the_card(family):
+    """The pipelined step on the card (augmentation on a second stream):
+    losses equal to the plain step's on the same batches and a CUDA
+    generator of the same seed, within 1e-6 relative; K2 once per step."""
+    _cuda()
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    cfg = config.get_config(f"tiny_{family}")
+    batches = [_tiny_batch(cfg, 20 + i) for i in range(4)]
+    losses = {}
+    for pipelined in (False, True):
+        module, anchors = build_model(cfg.model, train=True,
+                                      generator=torch.Generator().manual_seed(5))
+        state = train.create_train_state(module, cfg)
+        before = matching_cuda.launches
+        if pipelined:
+            prime, step = train.make_train_step_pipelined(module, anchors, cfg)
+            state, carry = prime(state, batches[0])
+            out = []
+            for nxt in batches[1:] + batches[:1]:
+                state, carry, m = step(state, carry, nxt)
+                out.append(float(m["loss"]))
+        else:
+            step = train.make_train_step(module, anchors, cfg)
+            out = [float(step(state, b)[1]["loss"]) for b in batches]
+        assert matching_cuda.launches == before + 4
+        losses[pipelined] = out
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_device_batches_staged_pinned_on_the_card():
+    """Loader.device_batches: batches on the card equal to the host
+    batches; pin_batch stages every field in pinned memory."""
+    _cuda()
+    from shape_based_object_detection_torch.data.pipeline import Loader, pin_batch
+    from shape_based_object_detection_torch.data.synthetic import SyntheticDetection
+
+    loader = Loader(SyntheticDetection(size=64, num_images=10), 4, 6, seed=3, workers=2)
+    host = list(loader.batches(0))
+    assert all(t.is_pinned() for t in pin_batch(host[0]))
+    dev = list(loader.device_batches(0))
+    assert len(dev) == len(host) == 2
+    for h, d in zip(host, dev):
+        for a, b in zip(h, d):
+            assert b.is_cuda and np.array_equal(a, b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A card's train state (train_bn buffers, momentum, EMA, the CUDA
+    generator) round-trips bit-equal."""
+    _cuda()
+    from shape_based_object_detection_torch import checkpoint, config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    cfg = config.get_config("tiny_retinanet")
+    cfg = config.dataclasses.replace(
+        cfg, model=config.dataclasses.replace(cfg.model, train_bn=True),
+        train=config.dataclasses.replace(cfg.train, ema_decay=0.9, warmup_steps=1))
+    module, anchors = build_model(cfg.model, train=True)
+    state = train.create_train_state(module, cfg)
+    step = train.make_train_step(module, anchors, cfg)
+    for i in range(2):
+        state, _ = step(state, _tiny_batch(cfg, 30 + i))
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    mgr.save(state)
+    mgr.wait()
+    other, _ = build_model(cfg.model, train=True, generator=torch.Generator().manual_seed(8))
+    restored = mgr.restore_latest(train.create_train_state(other, cfg))
+    assert restored.step == 2 and restored.generator.device.type == "cuda"
+    assert torch.equal(restored.generator.get_state(), state.generator.get_state())
+    for (n, a), b in zip(module.state_dict().items(), other.state_dict().values()):
+        assert torch.equal(a, b), n
+    for a, b in zip(state.opt_state.trace, restored.opt_state.trace):
+        assert torch.equal(a, b)
+    for n, e in state.ema.items():
+        assert torch.equal(e, restored.ema[n]), n
+
+
+@pytest.mark.cuda
+def test_train_cli_on_the_card(tmp_path, capsys):
+    """train_cli on the tiny SSD with shape matching and a val eval: K2 once
+    per step, K1 once per eval batch, a checkpoint, a finite loss."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch.cli import train_cli
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    k1, k2 = nms_cuda.launches, matching_cuda.launches
+    train_cli.main(["--config", "tiny_ssd", "--steps", "4", "--log-every", "2",
+                    "--checkpoint-dir", str(tmp_path / "ckpt"), "--workers", "2",
+                    "--set", "match.shape_weight=0.3", "--eval-every", "4",
+                    "--val-root", "synthetic://val", "--val-batches", "2"])
+    out = capsys.readouterr().out
+    assert "done at step 4" in out and "voc-mAP(val)=" in out
+    assert matching_cuda.launches - k2 == 4 and nms_cuda.launches - k1 == 2
+    loss = float(out.split("loss=")[1].split()[0])
+    assert np.isfinite(loss)

@@ -19,7 +19,7 @@ from shape_based_object_detection_torch.serving import Predictor
 from shape_based_object_detection_torch.utils.convert import (
     state_dict_from_jax_variables,
 )
-from tests.torch_parity import jax_variables, port_model, with_detect
+from tests.torch_parity import assert_matched, jax_variables, port_model, with_detect
 
 
 @pytest.mark.parametrize("batch,sigmoid", [(1, True), (4, True), (2, False)])
@@ -49,37 +49,6 @@ def test_postprocess_same_logits(batch, sigmoid):
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), atol=1e-6)
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), atol=1e-6)
-
-
-def _iou(a, b):
-    lt = np.maximum(a[:2], b[:2])
-    rb = np.minimum(a[2:], b[2:])
-    inter = np.prod(np.clip(rb - lt, 0, None))
-    union = np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2]) - inter
-    return inter / max(union, 1e-12)
-
-
-def _assert_matched(got, want, scales):
-    """Every valid reference detection has its own counterpart: same label,
-    box IoU >= 0.99, |score difference| <= 1e-3 (the reference's end-to-end
-    bar). A box clipped to zero width or height has no IoU with anything;
-    its corners must then agree within 1e-4 of the image's ``scale``.
-    ``got`` / ``want``: lists of (boxes, scores, labels) per image."""
-    assert len(got) == len(want) == len(scales)
-    total = 0
-    for (gb, gs, gl), (wb, ws, wl), scale in zip(got, want, scales):
-        assert len(gs) == len(ws)
-        free = list(range(len(gs)))
-        for box, score, label in zip(wb, ws, wl):
-            hit = next((j for j in free if gl[j] == label
-                        and abs(gs[j] - score) <= 1e-3
-                        and (_iou(gb[j], box) >= 0.99
-                             or np.abs(gb[j] - box).max() <= 1e-4 * scale)),
-                       None)
-            assert hit is not None, (box, score, label)
-            free.remove(hit)
-        total += len(ws)
-    assert total > 0
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +82,7 @@ def test_detect_end_to_end(tiny):
                                                           det.labels)))
         return out
 
-    _assert_matched(lists(got), lists(want), [1.0] * images.shape[0])
+    assert_matched(lists(got), lists(want), [1.0] * images.shape[0])
 
 
 def test_predictor_end_to_end(tiny, monkeypatch):
@@ -137,9 +106,9 @@ def test_predictor_end_to_end(tiny, monkeypatch):
     for request in (images, images[:1], [pre] + images[:2]):
         got = port.predict(request)
         want = jax_pred.predict(request)
-        _assert_matched([(d.boxes, d.scores, d.labels) for d in got],
-                        [(d.boxes, d.scores, d.labels) for d in want],
-                        [max(_size(item)) for item in request])
+        assert_matched([(d.boxes, d.scores, d.labels) for d in got],
+                       [(d.boxes, d.scores, d.labels) for d in want],
+                       [max(_size(item)) for item in request])
 
 
 def _size(item):

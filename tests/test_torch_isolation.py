@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "shape_based_object_detection_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shape_based_object_detection_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain",
+             "shape_based_object_detection_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "torch_kernel_cases.py"]
 
@@ -36,6 +37,15 @@ def _imported_modules(path):
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_no_prebuilt_library_is_loaded():
+    """The port builds its host libraries from its own csrc/ into _build/;
+    no source names the reference's prebuilt csrc/*.so."""
+    for path in SOURCES:
+        text = path.read_text()
+        for name in ("libap_matcher.so", "libsbd_image.so"):
+            assert name not in text, f"{path.relative_to(ROOT)} names {name}"
 
 
 def test_modules_import_without_jax_or_nvcc():
@@ -190,15 +200,15 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
     state = train.create_train_state(module, cfg, device="cpu")
     assert state.generator.device.type == "cpu"
     train.make_train_step(module, anchors, cfg, device="cpu")
-    # train_bn and both remat switches are ported; only the pipelined step
-    # still raises
+    # train_bn, both remat switches and the pipelined step are ported
     for ok in (dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, train_bn=True)),
                dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True)),
                dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=True))):
         train.create_train_state(module, ok, device="cpu")
         train.make_train_step(module, anchors, ok, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         train.make_train_step_pipelined(module, anchors, cfg)
+    train.make_train_step_pipelined(module, anchors, cfg, device="cpu")
     ssd = config.get_config("tiny_ssd")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(ssd.model, train=True)

@@ -22,8 +22,7 @@ from shape_based_object_detection_torch.models.vgg import L2Norm
 from shape_based_object_detection_torch.utils.convert import (
     state_dict_from_jax_variables,
 )
-from tests.test_torch_detection import _assert_matched
-from tests.torch_parity import jax_variables, nhwc_to_torch, port_model
+from tests.torch_parity import assert_matched, jax_variables, nhwc_to_torch, port_model
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +84,7 @@ def test_detect_parity(models, batch):
                 for i in range(batch)]
 
     assert int(got.valid.sum()) >= 50 * batch  # NMS had separated scores to work on
-    _assert_matched(lists(got), lists(want), [1.0] * batch)
+    assert_matched(lists(got), lists(want), [1.0] * batch)
 
 
 @pytest.mark.parametrize("batch", [1, 4])

@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from shape_based_object_detection_tpu import config as jax_config
@@ -96,6 +97,37 @@ def gt_batch(seed, b, g, size, classes):
     return batch
 
 
+def _iou(a, b):
+    lt = np.maximum(a[:2], b[:2])
+    rb = np.minimum(a[2:], b[2:])
+    inter = np.prod(np.clip(rb - lt, 0, None))
+    union = np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2]) - inter
+    return inter / max(union, 1e-12)
+
+
+def assert_matched(got, want, scales):
+    """Every valid reference detection has its own counterpart: same label,
+    box IoU >= 0.99, |score difference| <= 1e-3 (the reference's end-to-end
+    bar). A box clipped to zero width or height has no IoU with anything;
+    its corners must then agree within 1e-4 of the image's ``scale``.
+    ``got`` / ``want``: lists of (boxes, scores, labels) per image."""
+    assert len(got) == len(want) == len(scales)
+    total = 0
+    for (gb, gs, gl), (wb, ws, wl), scale in zip(got, want, scales):
+        assert len(gs) == len(ws)
+        free = list(range(len(gs)))
+        for box, score, label in zip(wb, ws, wl):
+            hit = next((j for j in free if gl[j] == label
+                        and abs(gs[j] - score) <= 1e-3
+                        and (_iou(gb[j], box) >= 0.99
+                             or np.abs(gb[j] - box).max() <= 1e-4 * scale)),
+                       None)
+            assert hit is not None, (box, score, label)
+            free.remove(hit)
+        total += len(ws)
+    assert total > 0
+
+
 def port_model(cfg, variables):
     """The port's module for ``cfg`` on the CPU with the JAX variables
     loaded (strict), and its anchors."""
@@ -106,3 +138,13 @@ def port_model(cfg, variables):
 
 def nhwc_to_torch(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests: the tiny models run fastest
+    on one, and the test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
