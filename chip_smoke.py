@@ -82,11 +82,35 @@ BatchNorm, and checks them all:
      and a bf16 b16 step with train_bn and remat whose running statistics
      equal the same step's without remat (updated once).
 
+The groups after ``base`` drive the training application (``bn``,
+``pipelined``, ``app``, ``ckpt``, ``loader``) and the float serving tier
+(``serve``):
+
+ 19. hflip TTA detect on R50-FPN-512 card vs CPU (float32, TF32 off, b1,
+     matched detection by detection); K1 bit-equal to its plain version on
+     the hflip merge at (16, 2000, 100), whose candidates arrive unsorted,
+     on the 2-scale (512, 640) merge at (16, 200, 100) and on SSD300's hflip
+     merge at (1, 800, 200); K1 once per TTA batch and S + 1 times per
+     multi-scale batch; the reference's "matrix" backend name runs K1 once;
+     soft-NMS (sigma 0.5) card vs CPU within 1e-6; K1 and soft-NMS times on
+     (16, 1000, 100) and on the merge;
+ 20. detect b16 bf16 with and without hflip TTA, and the 2-scale batch
+     detector, by CUDA events;
+ 21. the HTTP server over a bf16 b16 Predictor with buckets 1-16, warmed
+     up: 512 PNG/JPEG requests of 200-900 px from 16 client threads in a
+     process of their own, every answer equal to Predictor.predict of the
+     same batch (0.01 px, 1e-5), K1 once per batch, requests/s, p50/p90/p99
+     latency, batch occupancy, the server process's CPU and the share of
+     the wall with a batch on the card; a lone request on the b1 bucket;
+ 22. detect_cli on SSD300 with --tta-hflip --tta-scales 300 --save-viz (K1
+     twice), and serve_cli as a subprocess: /healthz, /detect, SIGTERM.
+
 Prints its results, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when there is no CUDA device or a phase fails.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only serve   # one group, no result line
 """
 
 from __future__ import annotations
@@ -1987,7 +2011,513 @@ def phase_cli_match_timing(torch, config, matching, matching_cuda, cli_train):
     return timing
 
 
-PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader")
+def tta_model(torch, config, build_model, dtype, widen=False):
+    """R50-FPN-512 at score threshold 0 with hflip TTA on the card (random
+    weights from seed 1; ``widen`` spreads the scores as phase_forward
+    does), and the config."""
+    cfg = serving_config(config, dtype).model
+    cfg = dataclasses.replace(cfg, precision="highest" if widen else cfg.precision,
+                              detect=dataclasses.replace(cfg.detect, tta_hflip=True))
+    module, anchors = build_model(cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(1))
+    if widen:
+        with torch.no_grad():
+            module.cls_head.predict.weight.mul_(100.0)
+    return module, anchors, cfg
+
+
+def merge_candidates(torch, detection, module, anchors, cfg, images):
+    """The hflip merge's candidates for ``images`` (uint8 on the card):
+    both halves' top-k concatenated, as postprocess_tta_hflip sends them."""
+    with torch.inference_mode():
+        x = detection.image_lib.normalize_images(images)
+        out = module(torch.cat([x, x.flip(2)]).permute(0, 3, 1, 2))
+        return detection.tta_hflip_candidates(*out, anchors, cfg)
+
+
+def unsorted_report(torch, scores):
+    """How far from score order the candidates arrive: the images not in
+    order, and the candidates whose place a stable sort by score changes."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    moved = order != torch.arange(scores.shape[1], device=scores.device)
+    return int(moved.any(1).sum()), int(moved.sum())
+
+
+def k1_on(torch, nms, cands, det, name):
+    """K1 against the plain version on one candidate set, bit for bit.
+    Returns the largest |difference| over idx and score."""
+    from tests.torch_kernel_cases import nms_bit_equal
+
+    boxes, scores, cls, valid = cands
+    same, err, kept = nms_bit_equal(nms.class_offset_boxes(boxes, cls), scores, valid,
+                                    det.nms_iou_threshold, det.max_detections)
+    rows, moved = unsorted_report(torch, scores)
+    log(f"[serve] nms_greedy on {name} (B, N, M)=({scores.shape[0]}, {scores.shape[1]}, "
+        f"{det.max_detections}): candidates out of score order in {rows} of "
+        f"{scores.shape[0]} images ({moved} not in their sorted place), "
+        f"{int(valid.sum())} valid, bit-equal={same}, kept={kept}")
+    if not same:
+        raise RuntimeError(f"nms_greedy differs from the plain version on {name}")
+    return err
+
+
+def matrix_route_is_k1(torch, detection, nms_cuda, cands, cfg, name):
+    """The reference's "matrix" backend name on the card: one K1 launch,
+    and K1's result."""
+    before = nms_cuda.launches
+    got = detection.run_nms(*cands, cfg, backend="matrix")
+    launched = nms_cuda.launches - before
+    want = detection.run_nms(*cands, cfg, backend="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[serve] nms_backend=\"matrix\" on {name}: nms_greedy launches {launched}, "
+        f"equal to the kernel's result={same}")
+    if launched != 1 or not same:
+        raise RuntimeError(f"the matrix backend name did not run the kernel on {name}")
+
+
+def soft_card_vs_cpu(torch, detection, cands, cfg, name):
+    """Soft-NMS (sigma 0.5) on the card against its run on the CPU."""
+    soft = dataclasses.replace(cfg, detect=dataclasses.replace(cfg.detect, soft_nms_sigma=0.5))
+    got = detection.run_nms(*cands, soft)
+    want = detection.run_nms(*(t.cpu() for t in cands), soft)
+    err = float((got.scores.cpu() - want.scores).abs().max())
+    same = all(torch.equal(a.cpu(), b) for a, b in zip((got.valid, got.labels, got.boxes),
+                                                       (want.valid, want.labels, want.boxes)))
+    log(f"[serve] soft-NMS (sigma 0.5) on {name}, card vs CPU: valid, labels and boxes "
+        f"equal={same}, max |score difference| {err:.3e} (bound 1e-6), kept per image "
+        f"{got.valid.sum(1).tolist()[:4]}...")
+    if not same or err > 1e-6:
+        raise RuntimeError(f"soft-NMS on the card differs from the CPU on {name}")
+    return soft
+
+
+def phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda, reset_counts):
+    """hflip detect card vs CPU at b1 in float32; K1 on the hflip merges (R50
+    at b16, SSD300 at b1), bit-equal to its plain version, and once per TTA
+    batch; the "matrix" backend name runs K1, soft-NMS card vs CPU; K1 and
+    soft-NMS times on the R50 candidates."""
+    from shape_based_object_detection_torch.detection import make_detect_fn
+
+    out, k1 = {}, {}
+    cpu_module, cpu_anchors, cfg = tta_model(torch, config, build_model, "float32",
+                                             widen=True)
+    module, anchors = build_model(cfg, device="cuda")
+    module.load_state_dict(cpu_module.state_dict())
+    det, size = cfg.detect, cfg.image_size
+    rng = np.random.default_rng(21)
+    images = torch.from_numpy(rng.integers(0, 256, (16, size, size, 3), dtype=np.uint8)).cuda()
+
+    # hflip TTA on the card against the CPU, float32 with TF32 off, one image
+    one = images[:1].cpu().numpy()
+    want = make_detect_fn(cpu_module, cpu_anchors, cfg, device="cpu")(one)
+    got = make_detect_fn(module, anchors, cfg, device="cuda")(one)
+    v_w, v_g = want.valid[0].numpy(), got.valid[0].cpu().numpy()
+    n = matched(tuple(t[0].cpu().numpy()[v_g] for t in got[:3]),
+                tuple(t[0].numpy()[v_w] for t in want[:3]))
+    log(f"[serve] R50-FPN-512 hflip TTA detect card vs CPU (fp32, TF32 off, b1, 2000 "
+        f"candidates into the merge): {n} detections matched (label, IoU >= 0.99, "
+        f"|dscore| <= 1e-3)")
+    del cpu_module
+
+    # K1 on the hflip merge at b16: the two sorted top-1000 sets, unsorted
+    cands = merge_candidates(torch, detection, module, anchors, cfg, images)
+    k1["tta_max_abs_err"] = k1_on(torch, nms, cands, det, "the R50 hflip merge at b16")
+    detect = make_detect_fn(module, anchors, cfg, device="cuda")
+    reset_counts()
+    detect(images)
+    torch.cuda.synchronize()
+    k1["tta_launches"] = nms_cuda.launches
+    log(f"[serve] hflip TTA detect b16: nms_greedy launches {nms_cuda.launches} for 1 batch")
+    if nms_cuda.launches != 1:
+        raise RuntimeError("hflip TTA detect did not launch the NMS kernel once")
+    timing = nms_timing(nms, nms_cuda, cands, det, "the R50 hflip merge (unsorted)")
+    k1.update({f"tta_{k}": v for k, v in timing.items()})
+
+    # the matrix backend name and soft-NMS on the same merge, and on the
+    # plain path's (16, 1000, 100) candidates (the merge's first half)
+    plain = tuple(t[:, :det.pre_nms_top_k] for t in cands)
+    matrix_route_is_k1(torch, detection, nms_cuda, cands, cfg, "the R50 hflip merge at b16")
+    soft = soft_card_vs_cpu(torch, detection, cands, cfg, "the R50 hflip merge at b16")
+    for name, c in (("(16, 1000, 100)", plain), ("(16, 2000, 100)", cands)):
+        times = {
+            "k1": cuda_times_ms(lambda: detection.run_nms(*c, cfg, backend="cuda"), iters=50),
+            "soft": cuda_times_ms(lambda: detection.run_nms(*c, soft), iters=10, warmup=2),
+        }
+        med = {k: float(np.median(t)) for k, t in times.items()}
+        out.update({f"nms_{k}_{c[1].shape[1]}_median_ms": v for k, v in med.items()})
+        log(f"[timing] class-aware NMS on {name} R50 candidates ({nvidia_smi_line()}), "
+            f"CUDA events: K1 (run_nms, class offset and gather included) "
+            f"{spread(times['k1'])}; soft-NMS (sigma 0.5) {spread(times['soft'])}; "
+            f"soft / K1 {med['soft'] / med['k1']:.1f}x")
+
+    del module, detect
+
+    # SSD300 (config #1, float32) hflip TTA at b1: (1, 800, 200)
+    ssd = config.get_config("config1_ssd300_infer").model
+    ssd = dataclasses.replace(ssd, detect=dataclasses.replace(ssd.detect, tta_hflip=True))
+    smodule, sanchors = build_model(ssd, device="cuda", generator=torch.Generator().manual_seed(2))
+    simages = torch.from_numpy(rng.integers(0, 256, (1, ssd.image_size, ssd.image_size, 3),
+                                            dtype=np.uint8)).cuda()
+    scands = merge_candidates(torch, detection, smodule, sanchors, ssd, simages)
+    k1["ssd_tta_max_abs_err"] = k1_on(torch, nms, scands, ssd.detect,
+                                      "the SSD300 hflip merge at b1")
+    timing = nms_timing(nms, nms_cuda, scands, ssd.detect, "the SSD300 hflip merge")
+    k1.update({f"ssd_tta_{k}": v for k, v in timing.items()})
+    reset_counts()
+    make_detect_fn(smodule, sanchors, ssd, device="cuda")(simages)
+    torch.cuda.synchronize()
+    k1["ssd_tta_launches"] = nms_cuda.launches
+    if nms_cuda.launches != 1:
+        raise RuntimeError("SSD300 hflip TTA did not launch the NMS kernel once")
+    return out, k1
+
+
+def phase_serve_multiscale(torch, config, build_model, serving, nms, nms_cuda, reset_counts):
+    """R50-FPN-512 at b16 (random weights from seed 0): the 2-scale batch
+    detector launches K1 S + 1 times per batch, and K1 is bit-equal on its
+    merge (float32, whose scores are not tied as bf16's are); then, in the
+    serving config (bf16), detect with and without hflip TTA and the
+    2-scale detector, timed by CUDA events. Returns (results, K1
+    entries)."""
+    from shape_based_object_detection_torch.detection import (
+        MultiScaleBatchDetector, make_detect_fn,
+    )
+    from shape_based_object_detection_torch.utils.image import resize_images
+
+    k1 = {}
+    cfg = serving_config(config, "float32").model
+    det, size = cfg.detect, cfg.image_size
+    scales = (size, size * 5 // 4)  # (512, 640)
+    # smooth content (32 px noise resized up), as photos are: pixel noise
+    # scores higher at 512 px than resized to 640, which leaves the merge
+    # in score order
+    small = torch.from_numpy(np.random.default_rng(22).integers(
+        0, 256, (16, 32, 32, 3), dtype=np.uint8)).cuda()
+    images = resize_images(small, size).round().clamp(0, 255).to(torch.uint8)
+    module, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    # the 2-scale batch detector: S + 1 launches per batch, K1 on its merge
+    ms = MultiScaleBatchDetector(cfg, module, scales, device="cuda")
+    reset_counts()
+    ms(images)
+    torch.cuda.synchronize()
+    k1["multiscale_launches"] = nms_cuda.launches
+    log(f"[serve] MultiScaleBatchDetector {scales} b16: nms_greedy launches "
+        f"{nms_cuda.launches} for 1 batch (2 scales + the merge)")
+    if nms_cuda.launches != 3:
+        raise RuntimeError("the 2-scale batch detector did not launch the kernel 3 times")
+    parts = ms.scale_detections(images)
+    ms_cands = tuple(torch.cat([getattr(p, f) for p in parts], 1)
+                     for f in ("boxes", "scores", "labels", "valid"))
+    k1["multiscale_max_abs_err"] = k1_on(torch, nms, ms_cands, det,
+                                         f"the 2-scale merge {scales} at b16")
+    timing = nms_timing(nms, nms_cuda, ms_cands, det, "the 2-scale merge")
+    k1.update({f"multiscale_{k}": v for k, v in timing.items()})
+    del ms, parts, module
+
+    cfg = serving_config(config, "bfloat16").model
+    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    tta = dataclasses.replace(cfg, detect=dataclasses.replace(cfg.detect, tta_hflip=True))
+    runs = {
+        "detect": make_detect_fn(module, anchors, cfg, device="cuda"),
+        "detect_tta_hflip": make_detect_fn(module, anchors, tta, device="cuda"),
+        "multiscale_2_scales": MultiScaleBatchDetector(cfg, module, scales, device="cuda"),
+    }
+    out = {}
+    for name, fn in runs.items():
+        times = cuda_times_ms(lambda: fn(images), iters=20)
+        ms = float(np.median(times))
+        out[f"serve_{name}_b16_bf16_median_ms"] = ms
+        log(f"[timing] {name} b16 bf16 ({nvidia_smi_line()}): {spread(times)} per batch, "
+            f"{16e3 / ms:.1f} images/s at the median")
+    ratio = out["serve_detect_tta_hflip_b16_bf16_median_ms"] / out["serve_detect_b16_bf16_median_ms"]
+    log(f"[timing] hflip TTA / plain detect at b16 bf16: {ratio:.3f}x")
+    return out, k1
+
+
+SERVER_REQUESTS = 512
+SERVER_CLIENTS = 16
+
+
+def encoded_requests(count, seed):
+    """``count`` images of 200-900 px, each (h, w) different, PNG and JPEG
+    in turns, encoded with PIL, and the decoded pixels the server will
+    see."""
+    import io
+
+    from PIL import Image
+
+    from shape_based_object_detection_torch.utils.image import decode_image_host
+
+    rng = np.random.default_rng(seed)
+    specs, sizes = [], set()
+    while len(specs) < count:
+        h, w = (int(x) for x in rng.integers(200, 900, 2))
+        # smooth content keeps the encoded size near a photo's
+        small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        if (h, w) not in sizes:  # the size names the request in phase_server
+            sizes.add((h, w))
+            specs.append((len(specs), h, w, small))
+
+    def encode(spec):
+        i, h, w, small = spec
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, format="PNG" if i % 2 else "JPEG", quality=90, compress_level=1)
+        return buf.getvalue()
+
+    with ThreadPoolExecutor(8) as pool:  # PIL's codecs release the GIL
+        bodies = list(pool.map(encode, specs))
+        return bodies, list(pool.map(decode_image_host, bodies))
+
+
+def post(port, body, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/detect?min_score=0.0", data=body)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def load_client(port, folder, clients, out):
+    """The server phase's load, in a process of its own so that the
+    clients share no interpreter with the server: POST every body in
+    ``folder`` (by file name) from ``clients`` threads, each sending its
+    share one request after another; write the answers, each request's
+    latency and the wall time as JSON to ``out``. Run as ``python3 -c
+    "import sys, chip_smoke; chip_smoke.load_client(*sys.argv[1:])" PORT
+    FOLDER CLIENTS OUT`` from the repo root."""
+    names = sorted(os.listdir(folder))
+    bodies = []
+    for name in names:
+        with open(os.path.join(folder, name), "rb") as f:
+            bodies.append(f.read())
+    n, clients = len(bodies), int(clients)
+    answers, latency = [None] * n, [0.0] * n
+
+    def client(c):
+        for i in range(c, n, clients):
+            t0 = time.perf_counter()
+            answers[i] = post(int(port), bodies[i])
+            latency[i] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        list(pool.map(client, range(clients)))
+    wall = time.perf_counter() - t
+    with open(out, "w") as f:
+        json.dump({"answers": answers, "latency_s": latency, "wall_s": wall}, f)
+
+
+def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
+    """DetectionServer over a bf16 R50-FPN-512 Predictor (b16, buckets
+    1-16, warmed up): 512 encoded images from 16 client threads in another
+    process. Every answer equals Predictor.predict of the same decoded
+    images in the same batch (boxes within 0.01 px, scores 1e-5: the JSON's
+    rounding); K1 once per batch; the server process's CPU time and the
+    share of the wall with a batch on the card during the load; then one
+    lone request, which rides the b1 bucket."""
+    import urllib.request
+
+    from shape_based_object_detection_torch.server import DetectionServer
+
+    cfg = serving_config(config, "bfloat16")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, decode_backend="pil"))
+    pred = serving.Predictor(cfg, batch_size=16, device="cuda",
+                             bucket_sizes=serving.default_bucket_sizes(16),
+                             generator=torch.Generator().manual_seed(0))
+    t = time.perf_counter()
+    pred.warmup()
+    warm_s = time.perf_counter() - t
+    n = SERVER_REQUESTS
+    bodies, decoded = encoded_requests(n, 23)
+    key = {img.shape[:2]: i for i, img in enumerate(decoded)}
+    folder = os.path.join(workdir, "requests")
+    os.makedirs(folder, exist_ok=True)
+    for i, body in enumerate(bodies):
+        with open(os.path.join(folder, f"{i:05d}"), "wb") as f:
+            f.write(body)
+    answers_path = os.path.join(workdir, "answers.json")
+    batches, spans, first = [], [], []
+    submit = pred.submit
+
+    def recording(items):
+        """Which requests rode the batch, and CUDA events around its work."""
+        if not first:
+            first.extend([time.perf_counter(), time.process_time()])
+        batches.append([key[hw] for _, hw in items])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        submit(items)
+        end.record()
+        spans.append((start, end))
+
+    pred.submit = recording
+    server = DetectionServer(pred, port=0, batch_window_ms=5.0, request_timeout_s=120.0)
+    server.start()
+    try:
+        reset_counts()
+        client = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.load_client(*sys.argv[1:])",
+             str(server.port), folder, str(SERVER_CLIENTS), answers_path],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        torch.cuda.synchronize()
+        load_wall, load_cpu = (time.perf_counter() - first[0], time.process_time() - first[1])
+        if client.returncode != 0:
+            raise RuntimeError(f"the load client failed: {client.stderr[-2000:]}")
+        launches = nms_cuda.launches
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        served = list(batches)
+        busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+        # a lone request: the b1 bucket
+        post(server.port, bodies[0])
+        torch.cuda.synchronize()
+        lone = batches[len(served):]
+        lone_launches = nms_cuda.launches - launches
+    finally:
+        server.close()
+        pred.submit = submit
+    with open(answers_path) as f:
+        load = json.load(f)
+    answers = load["answers"]
+    if launches != stats["batches"] or len(served) != stats["batches"]:
+        raise RuntimeError(f"nms_greedy launched {launches} times for {stats['batches']} "
+                           f"served batches")
+    if sorted(i for b in served for i in b) != list(range(n)):
+        raise RuntimeError("the served batches do not hold every request once")
+    if lone != [[0]] or lone_launches != 1 or pred._bucket_for(1) != 1:
+        raise RuntimeError(f"the lone request rode {lone}, {lone_launches} launches")
+    worst_box = worst_score = 0.0
+    for batch in served:
+        ref = pred.predict([decoded[i] for i in batch])
+        for i, want in zip(batch, ref):
+            got = answers[i]["detections"]
+            if len(got) != len(want.scores) or not got:
+                raise RuntimeError(f"image {i}: {len(got)} detections served, "
+                                   f"{len(want.scores)} from predict")
+            boxes = np.array([d["box"] for d in got])
+            scores = np.array([d["score"] for d in got])
+            worst_box = max(worst_box, float(np.abs(boxes - want.boxes).max()))
+            worst_score = max(worst_score, float(np.abs(scores - want.scores).max()))
+            if [d["label"] for d in got] != want.labels.tolist():
+                raise RuntimeError(f"image {i}: labels differ from predict")
+    if worst_box > 0.01 or worst_score > 1e-5:
+        raise RuntimeError(f"served answers differ from predict: boxes {worst_box}, "
+                           f"scores {worst_score}")
+    # Predictor.predict alone on the same decoded images, for comparison
+    t = time.perf_counter()
+    pred.predict(decoded)
+    predict_s = time.perf_counter() - t
+    lat = np.array(load["latency_s"]) * 1e3
+    sizes = sorted(len(b) for b in served)
+    out = {"server_requests": n, "server_requests_per_s": n / load["wall_s"],
+           **{f"server_p{q}_ms": float(np.percentile(lat, q)) for q in (50, 90, 99)},
+           "server_mean_batch_occupancy": stats["mean_batch_occupancy"],
+           "server_batches": stats["batches"], "server_warmup_s": warm_s,
+           "server_process_cpu_per_wall": load_cpu / load_wall,
+           "server_batch_on_card_share": busy_ms / 1e3 / load_wall,
+           "predict_images_per_s": n / predict_s}
+    log(f"[server] bf16 R50-FPN-512 Predictor b16, buckets {pred.bucket_sizes}, warmup "
+        f"{warm_s:.2f} s ({nvidia_smi_line()}): {n} requests (PNG/JPEG, 200-900 px) from "
+        f"{SERVER_CLIENTS} client threads in another process in {load['wall_s']:.3f} s = "
+        f"{out['server_requests_per_s']:.1f} requests/s, latency p50 "
+        f"{out['server_p50_ms']:.1f} ms, p90 {out['server_p90_ms']:.1f} ms, p99 "
+        f"{out['server_p99_ms']:.1f} ms; /stats {stats}; batch sizes {sizes}; during the "
+        f"load the server process used {out['server_process_cpu_per_wall']:.2f} CPU s per "
+        f"s and a batch was on the card {100 * out['server_batch_on_card_share']:.1f} % of "
+        f"the wall (CUDA events around each batch); nms_greedy launches {launches} = "
+        f"batches; every answer equal to Predictor.predict of the same batch (max |box "
+        f"diff| {worst_box:.4f} px, |score diff| {worst_score:.2e}); a lone request rode a "
+        f"batch of 1 (bucket {pred._bucket_for(1)}), 1 launch. Predictor.predict of the "
+        f"{n} decoded images: {out['predict_images_per_s']:.1f} images/s (host clock)")
+    return out, launches
+
+
+def read_until(lines, prefix, timeout):
+    """Lines of a subprocess until one starts with ``prefix``."""
+    seen, deadline = [], time.time() + timeout
+    while not (seen and seen[-1].startswith(prefix)):
+        line = lines.get(timeout=max(1.0, deadline - time.time()))
+        if line is None:
+            raise RuntimeError(f"the process ended before {prefix!r}: {seen[-10:]}")
+        seen.append(line.rstrip())
+    return seen
+
+
+def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
+    """detect_cli on SSD300 (config #1) with hflip and multi-scale TTA and
+    --save-viz, in this process; serve_cli as a subprocess on a free port:
+    /healthz, one /detect, then SIGTERM."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    path = os.path.join(workdir, "street.png")
+    bodies, decoded = encoded_requests(1, 24)
+    Image.fromarray(decoded[0]).save(path)
+    viz = os.path.join(workdir, "viz")
+    reset_counts()
+    t = time.perf_counter()
+    buf = io.StringIO()  # its 200 detections are not printed
+    with contextlib.redirect_stdout(buf):
+        cli_detect.main(["--config", "config1_ssd300_infer", "--image", path, "--tta-hflip",
+                         "--tta-scales", "300", "--save-viz", viz, "--min-score", "0.0",
+                         "--set", "model.detect.score_threshold=0.0"])
+    cli_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    dets = json.loads(buf.getvalue())
+    drawn = np.asarray(Image.open(os.path.join(viz, "street_det.png")))
+    launches = nms_cuda.launches
+    log(f"[cli] detect_cli SSD300 --tta-hflip --tta-scales 300 --save-viz: {len(dets)} "
+        f"detections in {cli_s:.2f} s (model build included), viz {drawn.shape}, "
+        f"nms_greedy launches {launches} (the hflip merge and the scale merge)")
+    if not dets or drawn.shape != decoded[0].shape or launches != 2:
+        raise RuntimeError("detect_cli with TTA did not run as expected")
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shape_based_object_detection_torch.cli.serve_cli",
+         "--config", "config2_retinanet_r50_infer", "--port", "0", "--batch-size", "4",
+         "--set", "model.detect.score_threshold=0.0", "--set", "data.decode_backend=pil"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for x in proc.stdout:
+            lines.put(x)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    t = time.perf_counter()
+    try:
+        seen = read_until(lines, "serving on", 300)
+        ready_s = time.perf_counter() - t
+        port = int(seen[-1].split("http://127.0.0.1:")[1].split("/")[0])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            health = r.read()
+        answer = post(port, bodies[0])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        seen += read_until(lines, "server stopped", 30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[cli] serve_cli config #2 (b4, buckets 1-4) subprocess: ready in {ready_s:.1f} s "
+        f"('{seen[1] if len(seen) > 1 else seen[0]}'), /healthz {health!r}, /detect "
+        f"{len(answer['detections'])} detections for a {answer['width']}x{answer['height']} "
+        f"image, SIGTERM -> exit {rc}, '{seen[-1]}'")
+    if health != b"ok" or not answer["detections"] or rc != 0:
+        raise RuntimeError("serve_cli did not serve and stop cleanly")
+    return {"detect_cli_launches": launches, "serve_cli_ready_s": ready_s}
+
+
+PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve")
 
 
 def main() -> int:
@@ -2175,6 +2705,26 @@ def run_phases(torch, want, only, t0, workdir) -> int:
         results.update(phase_ckpt_round_trip(torch, config, train, build_model, workdir))
     if want("loader"):
         results.update(phase_loader(torch))
+    # the float serving tier: TTA, the NMS variants, the server and its CLIs
+    if want("serve"):
+        from shape_based_object_detection_torch.cli import detect_cli as cli_detect
+
+        serve_out, serve_k1 = phase_serve_nms(torch, config, build_model, detection, nms,
+                                              nms_cuda, reset_counts)
+        results.update(serve_out)
+        ms_out, ms_k1 = phase_serve_multiscale(torch, config, build_model, serving, nms,
+                                               nms_cuda, reset_counts)
+        results.update(ms_out)
+        serve_k1.update(ms_k1)
+        server_out, serve_launches = phase_server(torch, config, serving, nms_cuda,
+                                                  reset_counts, workdir)
+        results.update(server_out)
+        clis = phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir)
+        results.update(clis)
+        # K1 once per TTA batch, S + 1 per multi-scale batch, once per served
+        # batch; its time and bound on the hflip and 2-scale merges
+        k1.update({**serve_k1, "serve_launches": serve_launches,
+                   "detect_cli_launches": clis["detect_cli_launches"]})
 
     log(json.dumps(results))
     if only:

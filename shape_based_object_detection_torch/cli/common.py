@@ -1,5 +1,5 @@
 """Shared CLI plumbing: restoring serving weights from the port's
-checkpoints."""
+checkpoints, and the test-time augmentation flags."""
 
 from __future__ import annotations
 
@@ -41,3 +41,27 @@ def restore_checkpoint_variables(module: torch.nn.Module, checkpoint_dir: str,
             f"{sorted(want - set(weights))[:8]}, unexpected "
             f"{sorted(set(weights) - want)[:8]}")
     return weights
+
+
+def enable_tta_hflip(cfg):
+    """``cfg`` with ``model.detect.tta_hflip=True`` (the ``--tta-hflip``
+    shortcut for ``--set model.detect.tta_hflip=true``)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            cfg.model,
+            detect=dataclasses.replace(cfg.model.detect, tta_hflip=True)))
+
+
+def parse_scales(text: str) -> list:
+    """``--tta-scales`` ("512,640") -> [512, 640]; SystemExit on anything
+    else."""
+    try:
+        scales = [int(s) for s in text.split(",") if s.strip()]
+    except ValueError:
+        raise SystemExit(f"--tta-scales must be comma-separated integers "
+                         f"(e.g. 512,640), got {text!r}")
+    if not scales:
+        raise SystemExit("--tta-scales named no scales")
+    return scales

@@ -16,8 +16,8 @@ import types
 
 import numpy as np
 
-# the serving tiers eval_cli switches on, not ported yet (ROADMAP.md item 6)
-UNPORTED = ("--quantize", "--act-scales", "--artifact", "--tta-hflip", "--tta-scales")
+# the int8 and exported-artifact tiers these flags switch on
+UNPORTED = ("--quantize", "--act-scales", "--artifact")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -46,8 +46,17 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["weights", "full"], help="not ported yet")
     p.add_argument("--act-scales", default="", help="not ported yet")
     p.add_argument("--artifact", default="", help="not ported yet")
-    p.add_argument("--tta-hflip", action="store_true", help="not ported yet")
-    p.add_argument("--tta-scales", default="", help="not ported yet")
+    p.add_argument("--tta-hflip", action="store_true",
+                   help="evaluate with horizontal-flip test-time augmentation "
+                        "(one forward on the doubled batch, the mirrored "
+                        "candidates merged by one NMS)")
+    p.add_argument("--tta-scales", default="",
+                   help="evaluate with multi-scale test-time augmentation: "
+                        "comma-separated image sizes (e.g. 512,640). Each batch "
+                        "is uploaded once at the base size, other scales resize "
+                        "it on the device, and one NMS merges the scales. "
+                        "Composes with --tta-hflip; RetinaNet configs only "
+                        "(SSD's heads depend on the size)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override (JSON-parsed values)")
@@ -55,22 +64,27 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    import torch
+
     from shape_based_object_detection_torch import config as config_lib
+    from shape_based_object_detection_torch.cli.common import enable_tta_hflip, parse_scales
     from shape_based_object_detection_torch.cli.train_cli import build_dataset, upload
     from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.detection import make_detect_fn
+    from shape_based_object_detection_torch.detection import (
+        MultiScaleBatchDetector, make_detect_fn, unported_tier,
+    )
     from shape_based_object_detection_torch.eval import Evaluator
     from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops.boxes import boxes_to_original
     from shape_based_object_detection_torch.utils.device import resolve_device
-    from shape_based_object_detection_torch.utils.image import boxes_norm_to_original_px
 
     args = _parser().parse_args(argv)
     for flag in UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")):
-            raise NotImplementedError(
-                f"{flag} (the int8, exported-artifact and TTA serving tiers) is "
-                "not ported yet (ROADMAP.md, modules still to port, item 6)")
+            raise unported_tier(f"{flag} (the int8 and exported-artifact serving tiers)")
     cfg = config_lib.resolve_config(args.config, args.overrides)
+    if args.tta_hflip:
+        cfg = enable_tta_hflip(cfg)
     if args.dataset:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 dataset=args.dataset))
@@ -85,7 +99,14 @@ def main(argv=None):
             module, args.checkpoint_dir, ema=args.ema), strict=True)
     elif args.ema:
         raise SystemExit("--ema requires --checkpoint-dir")
-    detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev)
+    if args.tta_scales:
+        try:
+            detect = MultiScaleBatchDetector(cfg.model, module,
+                                             parse_scales(args.tta_scales), cfg.data, dev)
+        except ValueError as e:  # e.g. SSD at a scale that changes its plan
+            raise SystemExit(str(e))
+    else:
+        detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev)
 
     # COCO: crowd regions ride along as ignore regions, and the area strata
     # (32^2/96^2 px) are in ORIGINAL-image pixels, from each image's size;
@@ -123,8 +144,8 @@ def main(argv=None):
             for b in range(n_valid):
                 im = dataset.images[sample_idx + b]
                 v = det.valid[b]
-                boxes_px = boxes_norm_to_original_px(det.boxes[b][v], im["height"],
-                                                     im["width"], cfg.data.letterbox)
+                boxes_px = boxes_to_original(torch.from_numpy(det.boxes[b][v]), im["height"],
+                                             im["width"], cfg.data.letterbox).numpy()
                 for box, score, label in zip(boxes_px, det.scores[b][v], det.labels[b][v]):
                     x0, y0, x1, y1 = (float(t) for t in box)
                     coco_results.append({

@@ -85,8 +85,10 @@ class DetectConfig:
     # select_top_candidates) that is faster than approx_max_k was and
     # bit-exact, so there is nothing to approximate away.
     approx_topk: bool = True
-    # NMS backend: "auto" (Pallas on TPU, scan elsewhere), "pallas", "scan",
-    # or "matrix" (round-based MXU formulation). All bit-identical (tested).
+    # NMS backend: "auto" (the CUDA kernel for CUDA tensors, the plain
+    # version for CPU tensors), "cuda" or "plain"; the reference's "pallas",
+    # "scan" and "matrix" load as "cuda", "plain" and "auto"
+    # (detection._NMS_BACKENDS).
     nms_backend: str = "auto"
     # Gaussian Soft-NMS (Bodla et al. 2017): > 0 decays overlapping scores by
     # exp(-iou^2/sigma) instead of hard suppression (0 = classic hard NMS).

@@ -5,11 +5,20 @@ normalize -> backbone/FPN/heads -> exact two-stage top-k candidate selection
 ``Detections`` with a valid mask. Every step runs on the module's device
 and nothing synchronises with the host until the caller reads the result.
 On the card the NMS is the CUDA kernel (``ops/nms_cuda.py``); on the CPU it
-is the plain version (``ops/nms.py``).
+is the plain version (``ops/nms.py``). Soft-NMS is the alternative a
+config may pick.
+
+Test-time augmentation: hflip (one forward on the doubled batch, the two
+candidate sets merged by one NMS) and multi-scale (one detect per scale on
+shared weights, merged by one NMS), as the reference's float tier.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from shape_based_object_detection_torch.config import DataConfig, ModelConfig
@@ -18,8 +27,13 @@ from shape_based_object_detection_torch.ops import nms as nms_lib
 from shape_based_object_detection_torch.utils import image as image_lib
 from shape_based_object_detection_torch.utils.device import resolve_device
 
-# DetectConfig.nms_backend values -> the port's two NMS routes. "pallas" and
-# "scan" are the reference's names, so its configs load unchanged.
+# DetectConfig.nms_backend values -> the greedy NMS routes ("auto" is
+# resolved apart). "pallas", "scan" and "matrix" are the reference's names,
+# so its configs load unchanged. The reference's "matrix" backend is a
+# round-based formulation of the same greedy NMS for the TPU's matrix unit;
+# here it runs as "auto" does (the kernel on the card is faster, PERF.md).
+# One deliberate difference: a zero-area candidate, whose IoU with itself
+# is 0, is picked again by greedy NMS but only once by the reference's rounds.
 _NMS_BACKENDS = {"cuda": "cuda", "pallas": "cuda", "plain": "plain",
                  "scan": "plain"}
 
@@ -60,6 +74,13 @@ def select_candidates(
     return cand_boxes, cand_scores, cand_classes, cand_valid
 
 
+def unported_tier(what: str) -> NotImplementedError:
+    """The error for a serving tier of the next slice of the port."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, modules still to port, item 6: "
+        "the int8 serving tiers and the exported artifact)")
+
+
 def run_nms(
     cand_boxes: torch.Tensor,  # (B, N, 4) xyxy in [0, 1]
     cand_scores: torch.Tensor,  # (B, N)
@@ -68,27 +89,27 @@ def run_nms(
     cfg: ModelConfig,
     backend: str | None = None,
 ) -> nms_lib.Detections:
-    """Class-aware NMS over a candidate set. ``backend`` (default
-    ``cfg.detect.nms_backend``): "auto" runs the CUDA kernel for CUDA
-    tensors and the plain version for CPU tensors; "cuda" (or the
+    """Class-aware NMS over a candidate set, which need not be sorted: every
+    backend selects by argmax. ``cfg.detect.soft_nms_sigma > 0`` runs
+    Soft-NMS (``ops/nms.py``) whatever the backend. Otherwise ``backend``
+    (default ``cfg.detect.nms_backend``): "auto" runs the CUDA kernel for
+    CUDA tensors and the plain version for CPU tensors; "cuda" (or the
     reference's "pallas") always the kernel, which raises on CPU tensors;
-    "plain" (or "scan") always the plain version."""
+    "plain" (or "scan") always the plain version; the reference's "matrix"
+    as "auto"."""
     det = cfg.detect
     if det.soft_nms_sigma > 0:
-        raise NotImplementedError(
-            "soft-NMS is not ported yet (ROADMAP.md, modules still to port, "
-            "item 6)")
+        return nms_lib.batched_class_aware_soft_nms(
+            cand_boxes, cand_scores, cand_classes, cand_valid,
+            sigma=det.soft_nms_sigma, score_threshold=det.score_threshold,
+            max_detections=det.max_detections)
     backend = backend or det.nms_backend
-    if backend == "auto":
+    if backend in ("auto", "matrix"):
         backend = "cuda" if cand_boxes.is_cuda else "plain"
-    if backend == "matrix":
-        raise NotImplementedError(
-            "the matrix NMS backend is not ported yet (ROADMAP.md, modules "
-            "still to port, item 6)")
-    if backend not in _NMS_BACKENDS:
-        raise ValueError(f"unknown nms_backend {backend!r}")
     args = (cand_boxes, cand_scores, cand_classes, cand_valid,
             det.nms_iou_threshold, det.max_detections)
+    if backend not in _NMS_BACKENDS:
+        raise ValueError(f"unknown nms_backend {backend!r}")
     if _NMS_BACKENDS[backend] == "cuda":
         from shape_based_object_detection_torch.ops.nms_cuda import (
             batched_class_aware_nms_cuda,
@@ -105,19 +126,49 @@ def postprocess(cls_logits, box_offsets, anchors_cxcywh,
     return run_nms(*cands, cfg)
 
 
+def mirror_boxes_x(boxes_xyxy: torch.Tensor) -> torch.Tensor:
+    """Reflect normalized xyxy boxes across the vertical midline (x -> 1 - x),
+    swapping x0 and x1 so x0 <= x1 holds. An involution."""
+    x0, y0, x1, y1 = boxes_xyxy.unbind(-1)
+    return torch.stack([1.0 - x1, y0, 1.0 - x0, y1], dim=-1)
+
+
+def tta_hflip_candidates(cls_logits, box_offsets, anchors_cxcywh,
+                         cfg: ModelConfig):
+    """The merged candidate set of hflip TTA: the first half of the batch is
+    the original orientation, the second the flipped copy. Each half goes
+    through the exact two-stage selection, the flipped half's boxes are
+    mirrored back, and the two sets are concatenated along the candidates
+    (2 * pre_nms_top_k per image, unsorted)."""
+    b = cls_logits.shape[0] // 2
+    bo, so, co, vo = select_candidates(cls_logits[:b], box_offsets[:b],
+                                       anchors_cxcywh, cfg)
+    bf, sf, cf, vf = select_candidates(cls_logits[b:], box_offsets[b:],
+                                       anchors_cxcywh, cfg)
+    return (torch.cat([bo, mirror_boxes_x(bf)], 1), torch.cat([so, sf], 1),
+            torch.cat([co, cf], 1), torch.cat([vo, vf], 1))
+
+
+def postprocess_tta_hflip(cls_logits, box_offsets, anchors_cxcywh,
+                          cfg: ModelConfig) -> nms_lib.Detections:
+    """Merge-postprocess for hflip TTA: one class-aware NMS over the union of
+    both halves' candidates (``tta_hflip_candidates``). The output is
+    flip-equivariant by construction."""
+    return run_nms(*tta_hflip_candidates(cls_logits, box_offsets,
+                                         anchors_cxcywh, cfg), cfg)
+
+
 def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
                    data_cfg: DataConfig | None = None, device=None):
     """Returns ``detect(images) -> Detections``.
 
     ``images``: (B, H, W, 3) uint8 (numpy or tensor) with H = W =
-    ``cfg.image_size``; normalization runs on the device. ``module`` and
-    ``anchors_cxcywh`` come from ``build_model`` on the same ``device``
-    (default: the card).
+    ``cfg.image_size``, or float already in [0, 1]; normalization runs on
+    the device. ``module`` and ``anchors_cxcywh`` come from ``build_model``
+    on the same ``device`` (default: the card). With
+    ``cfg.detect.tta_hflip`` one forward runs on the doubled batch ``[x,
+    hflip(x)]`` and ``postprocess_tta_hflip`` merges the halves.
     """
-    if cfg.detect.tta_hflip:
-        raise NotImplementedError(
-            "hflip test-time augmentation is not ported yet (ROADMAP.md, "
-            "modules still to port, item 6)")
     dev = resolve_device(device)
     param = next(module.parameters())
     if param.device != dev or anchors_cxcywh.device != dev:
@@ -126,12 +177,211 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
             f"{param.device} and {anchors_cxcywh.device}")
     mean = data_cfg.mean if data_cfg else image_lib.IMAGENET_MEAN
     std = data_cfg.std if data_cfg else image_lib.IMAGENET_STD
+    tta = cfg.detect.tta_hflip
+    post = postprocess_tta_hflip if tta else postprocess
 
     @torch.inference_mode()
     def detect(images) -> nms_lib.Detections:
         x = torch.as_tensor(images).to(dev, non_blocking=True)
-        x = image_lib.normalize_images(x, mean, std).permute(0, 3, 1, 2)
-        cls_logits, box_offsets = module(x)
-        return postprocess(cls_logits, box_offsets, anchors_cxcywh, cfg)
+        x = image_lib.normalize_images(x, mean, std)
+        if tta:  # one doubled-batch forward; W is dim 2 of NHWC
+            x = torch.cat([x, x.flip(2)], 0)
+        cls_logits, box_offsets = module(x.permute(0, 3, 1, 2))
+        return post(cls_logits, box_offsets, anchors_cxcywh, cfg)
 
     return detect
+
+
+def _check_float_tier(quantize, activation_scales) -> None:
+    if quantize or activation_scales is not None:
+        raise unported_tier("multi-scale detection in an int8 tier")
+
+
+def _build_scale_programs(module, model_cfg: ModelConfig, scales,
+                          data_cfg: DataConfig | None, device):
+    """One detect per scale, all on ``module``'s weights, and the cross-scale
+    merge. Each scale's module is built on the meta device first (shapes
+    only, no arithmetic): a scale whose ``state_dict`` shapes differ from
+    ``module``'s (SSD's extras and heads depend on the image size) raises,
+    naming it. Another scale's module shares ``module``'s tensors.
+    Returns ``([(detect, scale), ...], merge)``."""
+    from shape_based_object_detection_torch.models.factory import build_module
+    from shape_based_object_detection_torch.ops import anchors as anchor_lib
+
+    dev = resolve_device(device)
+    weights = module.state_dict()
+    want = {k: tuple(v.shape) for k, v in weights.items()}
+    modules = []
+    for s in scales:  # every scale is checked before any is built
+        scfg = dataclasses.replace(model_cfg, image_size=s)
+        err = (f"multi-scale TTA: scale {s} changes the model's parameter plan "
+               f"(family {model_cfg.family!r} is not scale-agnostic: SSD's "
+               "extras and heads depend on image_size), so the shared weights "
+               "cannot serve it. Use scales that keep the plan, or a RetinaNet "
+               "config (ResNet, FPN and shared subnets work at any size).")
+        try:
+            with torch.device("meta"):
+                smodule = build_module(scfg)
+        except Exception as e:
+            raise ValueError(f"{err} (build error: {e})") from e
+        if {k: tuple(v.shape) for k, v in smodule.state_dict().items()} != want:
+            raise ValueError(err)
+        modules.append((scfg, smodule))
+    per_scale = []
+    for scfg, smodule in modules:
+        if scfg.image_size == model_cfg.image_size:
+            smodule = module
+        else:  # the same tensors, in the module built for this scale
+            smodule.load_state_dict(weights, strict=True, assign=True)
+            smodule.eval()
+        anchors = anchor_lib.anchors_for_model(scfg).to(dev)
+        per_scale.append((make_detect_fn(smodule, anchors, scfg, data_cfg, dev),
+                          scfg.image_size))
+
+    def merge(boxes, scores, classes, valid) -> nms_lib.Detections:
+        return run_nms(boxes, scores, classes, valid, model_cfg)
+
+    return per_scale, merge
+
+
+def _concat(parts, corrections=None) -> Tuple[torch.Tensor, ...]:
+    """Per-scale Detections -> one candidate set along the detections."""
+    corrections = corrections or [None] * len(parts)
+    return (torch.cat([d.boxes if c is None else d.boxes * c
+                       for d, c in zip(parts, corrections)], 1),
+            torch.cat([d.scores for d in parts], 1),
+            torch.cat([d.labels for d in parts], 1),
+            torch.cat([d.valid for d in parts], 1))
+
+
+class MultiScaleBatchDetector:
+    """Batched multi-scale TTA for evaluation (``eval_cli --tta-scales``).
+
+    Takes the input pipeline's (B, S, S, 3) uint8 batch at the base size S
+    and uploads it once; each other scale resizes the whole canvas on the
+    device (``utils.image.resize_images``) ahead of its forward on the
+    shared weights. Per-scale detections are in normalized coordinates, so
+    one class-aware NMS over their concatenation merges them: S + 1 NMS
+    calls per batch. As the resize covers the whole canvas, a letterboxed
+    base keeps its content fraction at every scale. For a real dataset
+    the non-base scales see base -> scale pixels (two resamples), not
+    original -> scale. Composes with hflip TTA through
+    ``model_cfg.detect.tta_hflip``. Only the float tier is ported:
+    ``quantize`` and ``activation_scales`` raise.
+    """
+
+    def __init__(self, model_cfg: ModelConfig, module, scales,
+                 data_cfg: DataConfig | None = None, device=None,
+                 quantize: bool | str = "", activation_scales=None):
+        _check_float_tier(quantize, activation_scales)
+        if not scales:
+            raise ValueError("scales must name at least one image size")
+        self.scales = tuple(int(s) for s in scales)
+        self.device = resolve_device(device)
+        per_scale, self._merge = _build_scale_programs(
+            module, model_cfg, self.scales, data_cfg, self.device)
+        base = model_cfg.image_size
+        self._fns = [fn if s == base else self._with_resize(fn, s)
+                     for fn, s in per_scale]
+
+    @staticmethod
+    def _with_resize(fn, s: int):
+        def scaled(images):
+            x = images.to(torch.float32)
+            if images.dtype == torch.uint8:
+                x = x / 255.0  # then normalize_images skips its /255
+            return fn(image_lib.resize_images(x, s))
+
+        return scaled
+
+    def scale_detections(self, images) -> list:
+        """Each scale's Detections of the batch, before the merge."""
+        x = torch.as_tensor(images).to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            return [fn(x) for fn in self._fns]
+
+    def __call__(self, images) -> nms_lib.Detections:
+        parts = self.scale_detections(images)
+        if len(parts) == 1:
+            return parts[0]
+        with torch.inference_mode():
+            return self._merge(*_concat(parts))
+
+
+class MultiScaleDetector:
+    """Multi-scale TTA for one image of any size, composable with hflip TTA
+    through ``model_cfg.detect.tta_hflip``.
+
+    Each scale resizes the image on the host (PIL BILINEAR, or letterbox)
+    and runs its own detect on the shared weights; the per-scale detections
+    are in normalized coordinates and one class-aware NMS over their union
+    merges them. Every requested scale is checked against the weights as
+    ``MultiScaleBatchDetector`` does. Only the float tier is ported:
+    ``quantize`` and ``activation_scales`` raise.
+    """
+
+    def __init__(self, model_cfg: ModelConfig, module, scales,
+                 data_cfg: DataConfig | None = None, device=None,
+                 letterbox: bool = False, quantize: bool | str = "",
+                 activation_scales=None):
+        _check_float_tier(quantize, activation_scales)
+        if not scales:
+            raise ValueError("scales must name at least one image size")
+        self.scales = tuple(int(s) for s in scales)
+        self.letterbox = letterbox
+        self.device = resolve_device(device)
+        self._per_scale, self._merge = _build_scale_programs(
+            module, model_cfg, self.scales, data_cfg, self.device)
+
+    def __call__(self, image_np: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """(H, W, 3) uint8 image -> (boxes_px, scores, labels) in original
+        pixel coordinates, merged across scales."""
+        h, w = image_np.shape[:2]
+        parts, corrections = [], []
+        for fn, s in self._per_scale:
+            if self.letterbox:
+                batch = image_lib.letterbox_image_host(image_np, s)[None]
+                # the letterbox rounds the content to whole pixels per scale
+                # (nw = round(w * s / m)), while the merge and the mapping
+                # back use one frame (x * max(h, w)): rescale each scale's
+                # boxes to the exact x / m frame, so near-duplicates across
+                # scales align for the merge
+                m = max(h, w)
+                nh, nw = max(1, round(h * s / m)), max(1, round(w * s / m))
+                cx, cy = s * w / (nw * m), s * h / (nh * m)
+                corrections.append(torch.tensor([cx, cy, cx, cy],
+                                                dtype=torch.float32, device=self.device))
+            else:
+                batch = _resize_host(image_np, s)[None]
+                corrections.append(None)
+            parts.append(fn(batch))
+        with torch.inference_mode():
+            det = self._merge(*_concat(parts, corrections))
+        return _unpack_one(det, h, w, self.letterbox)
+
+
+def _resize_host(image_np: np.ndarray, size: int) -> np.ndarray:
+    from PIL import Image
+
+    return np.array(Image.fromarray(image_np).resize((size, size), Image.BILINEAR),
+                    dtype=np.uint8)
+
+
+def _unpack_one(det: nms_lib.Detections, h: int, w: int, letterbox: bool):
+    valid = det.valid[0].cpu().numpy()
+    boxes = box_ops.boxes_to_original(det.boxes[0].cpu(), h, w, letterbox).numpy()
+    return (boxes[valid], det.scores[0].cpu().numpy()[valid],
+            det.labels[0].cpu().numpy()[valid])
+
+
+def detect_single_image(detect_fn, image_np: np.ndarray, image_size: int,
+                        letterbox: bool = False) -> Tuple[np.ndarray, ...]:
+    """(H, W, 3) uint8 image of any size -> (boxes_px, scores, labels) in
+    original pixel coordinates: a host resize to ``image_size`` (PIL
+    BILINEAR, or letterbox), then ``detect_fn``."""
+    h, w = image_np.shape[:2]
+    if letterbox:
+        batch = image_lib.letterbox_image_host(image_np, image_size)[None]
+    else:
+        batch = _resize_host(image_np, image_size)[None]
+    return _unpack_one(detect_fn(batch), h, w, letterbox)

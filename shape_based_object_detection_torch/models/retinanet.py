@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -37,17 +38,38 @@ from shape_based_object_detection_torch.ops.anchors import num_anchors_per_cell
 PRIOR_PROB = 0.01
 
 
+# cuDNN's TF32 switch is one flag for the whole process: a forward holds
+# this lock from setting it to restoring it, so two threads running models
+# of different precision cannot run under each other's setting
+_PRECISION_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def conv_precision(precision: str):
-    """Set cuDNN's TF32 switch for the duration of a forward."""
+    """Set cuDNN's TF32 switch for the duration of a forward (and of a
+    backward, where a caller holds it around one), under a process-wide
+    re-entrant lock. A recomputation inside a backward pass (remat) runs on
+    autograd's own thread while the thread that called backward holds the
+    lock; it finds the switch already set and goes on without the lock.
+    That is safe only while every backward of a model runs inside this
+    context, as ``train._grad_and_update``'s does (checked by
+    ``tests/test_torch_server.py``). The check for "inside a backward" is
+    PyTorch's private ``_current_graph_task_id``: if a release removes it,
+    every forward raises rather than racing."""
     if precision not in ("highest", "default"):
         raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = precision == "default"
-    try:
+    allow = precision == "default"
+    if (torch._C._current_graph_task_id() != -1
+            and torch.backends.cudnn.allow_tf32 == allow):
         yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        return
+    with _PRECISION_LOCK:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
 
 
 class RetinaNetHead(nn.Module):

@@ -102,3 +102,26 @@ def clip_boxes(boxes_xyxy: torch.Tensor, lo: float = 0.0,
                hi: float = 1.0) -> torch.Tensor:
     """Clamp corner-form boxes into [lo, hi]."""
     return boxes_xyxy.clamp(lo, hi)
+
+
+def boxes_to_original(boxes_xyxy_norm: torch.Tensor, orig_h, orig_w,
+                      letterboxed: bool = False) -> torch.Tensor:
+    """Normalized boxes on the network input -> pixel xyxy in the original
+    image, each coordinate clipped to the image. Plain-resize mode scales by
+    (W, H); letterbox mode (content in the top-left of the canvas) by
+    max(H, W). ``orig_h`` and ``orig_w`` may be numbers or tensors that
+    broadcast against the boxes' leading dims."""
+    like = dict(dtype=torch.float32, device=boxes_xyxy_norm.device)
+    w = torch.as_tensor(orig_w, **like)
+    h = torch.as_tensor(orig_h, **like)
+    if letterboxed:
+        boxes = boxes_xyxy_norm * torch.maximum(h, w)[..., None]
+    else:
+        boxes = boxes_xyxy_norm * torch.stack([w, h, w, h], dim=-1)
+    zero = torch.zeros((), **like)
+    return torch.stack([
+        torch.minimum(torch.maximum(boxes[..., 0], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 1], zero), h),
+        torch.minimum(torch.maximum(boxes[..., 2], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 3], zero), h),
+    ], dim=-1)

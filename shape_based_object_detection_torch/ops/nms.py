@@ -7,6 +7,8 @@ on ties) and one IoU row per step. Class-awareness comes from shifting each
 box by ``2.0 * class`` so cross-class IoU is exactly 0. These functions are
 what the CPU runs; on the card ``ops/nms_cuda.py`` runs the same steps in one
 kernel, and the two agree bit for bit (same float operations, same order).
+Soft-NMS runs the same select loop with a Gaussian decay in place of the
+suppression, as plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from shape_based_object_detection_torch.ops import boxes as box_ops
 
 _NEG_INF = -1e10
 
@@ -42,6 +46,16 @@ class Detections(NamedTuple):
     valid: torch.Tensor  # (B, max_detections) bool
 
 
+def _iou_with(first, x0, y0, x1, y1, area):
+    """IoU of every candidate with the one at index ``first`` (..., 1), in
+    the order of operations the CUDA kernel reproduces."""
+    bx0, by0, bx1, by1, barea = (t.gather(-1, first) for t in (x0, y0, x1, y1, area))
+    iw = (torch.minimum(x1, bx1) - torch.maximum(x0, bx0)).clamp(min=0.0)
+    ih = (torch.minimum(y1, by1) - torch.maximum(y0, by0)).clamp(min=0.0)
+    inter = iw * ih
+    return inter / (area + barea - inter).clamp(min=1e-8)
+
+
 def greedy_nms(
     boxes_xyxy: torch.Tensor,  # (..., N, 4)
     scores: torch.Tensor,  # (..., N)
@@ -66,12 +80,7 @@ def greedy_nms(
         best = live.max(-1, keepdim=True).values
         found = best > _NEG_INF / 2
         first = torch.where(live == best, iota, n).min(-1, keepdim=True).values
-        bx0, by0, bx1, by1, barea = (
-            t.gather(-1, first) for t in (x0, y0, x1, y1, area))
-        iw = (torch.minimum(x1, bx1) - torch.maximum(x0, bx0)).clamp(min=0.0)
-        ih = (torch.minimum(y1, by1) - torch.maximum(y0, by0)).clamp(min=0.0)
-        inter = iw * ih
-        iou = inter / (area + barea - inter).clamp(min=1e-8)
+        iou = _iou_with(first, x0, y0, x1, y1, area)
         live = torch.where(found & (iou >= thr), _NEG_INF, live)
         idx_out.append(torch.where(found, first, 0))
         score_out.append(torch.where(found, best, 0.0))
@@ -102,6 +111,63 @@ def batched_class_aware_nms(
     """Class-aware NMS over a batch of fixed-size candidate sets."""
     res = greedy_nms(class_offset_boxes(boxes_xyxy, classes), scores, valid,
                      iou_threshold, max_detections)
+    return gather_detections(boxes_xyxy, classes, res)
+
+
+def soft_nms(
+    boxes_xyxy: torch.Tensor,  # (..., N, 4)
+    scores: torch.Tensor,  # (..., N), non-negative
+    valid: torch.Tensor,  # (..., N) bool
+    sigma: float,
+    score_threshold: float,
+    max_detections: int,
+) -> NMSResult:
+    """Gaussian Soft-NMS (Bodla et al. 2017), batched over the leading dims:
+    greedy NMS's select loop, but each pick multiplies the score of every
+    other positive candidate by ``exp(-iou² / sigma)`` instead of removing
+    it. A pick reports its decayed score; picks at or below
+    ``score_threshold`` are invalid (score 0) and leave the scores as they
+    were. Every slot carries its step's argmax, as the reference's."""
+    boxes = boxes_xyxy.float()
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    area = (x1 - x0).clamp(min=0.0) * (y1 - y0).clamp(min=0.0)
+    n = scores.shape[-1]
+    iota = torch.arange(n, device=scores.device)
+    floor = torch.tensor(max(score_threshold, _NEG_INF / 2), dtype=torch.float32,
+                         device=scores.device)
+    live = torch.where(valid, scores.float(), _NEG_INF)
+
+    idx_out, score_out, ok_out = [], [], []
+    for _ in range(max_detections):
+        best = live.max(-1, keepdim=True).values
+        found = best > floor
+        first = torch.where(live == best, iota, n).min(-1, keepdim=True).values
+        iou = _iou_with(first, x0, y0, x1, y1, area)
+        decay = torch.exp(box_ops.true_div(-(iou * iou), sigma))
+        decayed = torch.where(live > 0, live * decay, live)
+        live = torch.where(found, decayed, live)
+        live = live.scatter(-1, first, _NEG_INF)  # the pick is consumed
+        idx_out.append(first)
+        score_out.append(torch.where(found, best, 0.0))
+        ok_out.append(found)
+    return NMSResult(indices=torch.cat(idx_out, -1).to(torch.int32),
+                     scores=torch.cat(score_out, -1),
+                     valid=torch.cat(ok_out, -1))
+
+
+def batched_class_aware_soft_nms(
+    boxes_xyxy: torch.Tensor,  # (B, N, 4) in [0, 1]
+    scores: torch.Tensor,  # (B, N)
+    classes: torch.Tensor,  # (B, N) int32
+    valid: torch.Tensor,  # (B, N) bool
+    sigma: float,
+    score_threshold: float,
+    max_detections: int,
+) -> Detections:
+    """Class-aware Soft-NMS: with the class offset, cross-class IoU is 0 and
+    its decay exp(0) = 1."""
+    res = soft_nms(class_offset_boxes(boxes_xyxy, classes), scores, valid,
+                   sigma, score_threshold, max_detections)
     return gather_detections(boxes_xyxy, classes, res)
 
 

@@ -1,26 +1,30 @@
 """Batched inference serving (port of the JAX package's ``serving.py``,
 float tier).
 
-``Predictor.predict`` splits a request into fixed-size batches, resizes and
-pads each on the host, runs detect on the device and unpads the results. The
-next chunk is prepared and launched before the previous one is read back, so
-host work overlaps the device (PyTorch launches asynchronously on CUDA).
+``Predictor.predict`` splits a request into batches, resizes and pads each on
+the host to its bucket (the smallest batch size of ``bucket_sizes`` that
+holds it), runs detect on the device and unpads the results. The next chunk
+is prepared and launched before the previous one is read back, so host work
+overlaps the device (PyTorch launches asynchronously on CUDA);
+``submit``/``poll`` expose the same overlap to a caller (the HTTP server).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from shape_based_object_detection_torch.config import ExperimentConfig
-from shape_based_object_detection_torch.detection import make_detect_fn
+from shape_based_object_detection_torch.detection import make_detect_fn, unported_tier
 from shape_based_object_detection_torch.models.factory import build_model
+from shape_based_object_detection_torch.ops.boxes import boxes_to_original
 from shape_based_object_detection_torch.utils.device import resolve_device
 from shape_based_object_detection_torch.utils.image import (
-    boxes_norm_to_original_px, letterbox_image_host, load_resized_image_host,
+    effective_decode_backend, letterbox_image_host, load_resized_image_host,
 )
 
 
@@ -80,42 +84,63 @@ def unpack_detections(det, sizes, min_score: float = 0.0,
                       letterbox: bool = False) -> List[Detection]:
     """Fixed-size Detections -> per-image unpadded pixel-space lists (reads
     the device results back, so it waits for them)."""
-    boxes, scores, labels, valid = (t.cpu().numpy() for t in det)
+    boxes, scores, labels, valid = (t.cpu() for t in det)
+    hw = torch.tensor(sizes, dtype=torch.float32).reshape(-1, 1, 2)
+    boxes = boxes_to_original(boxes[:len(sizes)], hw[..., 0], hw[..., 1],
+                              letterbox).numpy()
+    scores, labels, valid = scores.numpy(), labels.numpy(), valid.numpy()
     out = []
-    for i, (h, w) in enumerate(sizes):
+    for i in range(len(sizes)):
         keep = valid[i] & (scores[i] >= min_score)
-        bx = boxes_norm_to_original_px(boxes[i][keep], h, w, letterbox)
-        out.append(Detection(boxes=bx, scores=scores[i][keep],
+        out.append(Detection(boxes=boxes[i][keep], scores=scores[i][keep],
                              labels=labels[i][keep]))
     return out
 
 
+def default_bucket_sizes(batch_size: int) -> list:
+    """The standard bucket ladder: powers of 2 below ``batch_size``, then
+    ``batch_size`` itself (serve_cli's "auto")."""
+    return [b for b in (1, 2, 4, 8, 16, 32, 64) if b < batch_size] + [batch_size]
+
+
 class Predictor:
-    """detect() as a service: fixed batch, padded, launches overlapped with
-    host work. Runs on the card unless ``device="cpu"``."""
+    """detect() as a service: fixed or bucketed batch, padded, launches
+    overlapped with host work. Runs on the card unless ``device="cpu"``."""
 
     def __init__(self, cfg: ExperimentConfig, state_dict=None,
                  batch_size: int = 8, min_score: float = 0.0,
                  quantize: bool | str = False, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 bucket_sizes=None):
         """``state_dict``: weights to load (strict); None keeps the fresh
-        initialisation drawn from ``generator``. Only the float tier is
-        ported: any ``quantize`` other than False raises."""
+        initialisation drawn from ``generator``. ``bucket_sizes`` (e.g. (1,
+        4, 16), ending at ``batch_size``): a request chunk pads only to the
+        smallest bucket that holds it, so small requests skip most of the
+        padded batch's upload and compute; None is ``[batch_size]``, every
+        chunk padded to ``batch_size``. Only the float tier is ported: any ``quantize``
+        other than False raises."""
         if quantize is not False:
-            raise NotImplementedError(
-                "quantized serving tiers are not ported yet (ROADMAP.md, "
-                "modules still to port, item 6)")
+            raise unported_tier("quantized serving")
         self.cfg = cfg
         self.batch_size = batch_size
+        bucket_sizes = sorted(set(int(b) for b in (bucket_sizes or [batch_size])))
+        if bucket_sizes[-1] != batch_size:
+            raise ValueError(f"bucket_sizes {bucket_sizes} must end at "
+                             f"batch_size={batch_size}")
+        self.bucket_sizes = bucket_sizes
         self.min_score = min_score
         self.size = cfg.model.image_size
         self.letterbox = cfg.data.letterbox
         self.device = resolve_device(device)
+        # resolved once: "native" raises here, not at the first request,
+        # where the decoder does not build
+        self.decode_backend = effective_decode_backend(cfg.data.decode_backend)
         self.module, self.anchors = build_model(cfg.model, self.device, generator)
         if state_dict is not None:
             self.module.load_state_dict(state_dict, strict=True)
         self._detect = make_detect_fn(self.module, self.anchors, cfg.model,
                                       cfg.data, self.device)
+        self._pending: Deque[Tuple] = collections.deque()  # in flight, FIFO
 
     def _upload(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch)
@@ -123,20 +148,53 @@ class Predictor:
             x = x.pin_memory()  # lets the copy run asynchronously
         return x.to(self.device, non_blocking=True)
 
+    def _bucket_for(self, n: int) -> int:
+        """The smallest batch that holds ``n`` images."""
+        for b in self.bucket_sizes:
+            if n <= b:
+                return b
+        return self.batch_size  # prepare_batch refuses more
+
+    def _launch(self, images: Sequence):
+        batch, sizes = prepare_batch(images, self.size, self._bucket_for(len(images)),
+                                     self.letterbox, self.decode_backend)
+        return self._detect(self._upload(batch)), sizes
+
+    def warmup(self) -> None:
+        """One batch of each bucket, read back: builds
+        the NMS kernel and runs cuDNN's first calls at every batch shape
+        before a real request arrives."""
+        dummy = np.zeros((8, 8, 3), np.uint8)
+        for b in self.bucket_sizes:
+            self.submit([dummy] * b)
+            self.poll()
+
+    def submit(self, images: Sequence) -> None:
+        """Launch a batch of at most ``batch_size`` images without waiting
+        for it. Several batches may be in flight; ``poll`` returns them in
+        submission order."""
+        self._pending.append(self._launch(images))
+
+    def poll(self) -> List[Detection]:
+        """Wait for the oldest batch in flight and return its unpadded
+        detections."""
+        if not self._pending:
+            raise RuntimeError("poll() without a batch in flight: submit() first")
+        return unpack_detections(*self._pending.popleft(), self.min_score,
+                                 self.letterbox)
+
     def predict(self, images: Sequence) -> List[Detection]:
-        """Any request size: ceil(len / batch_size) batches, pipelined so
-        chunk i+1 is prepared and launched before chunk i is read back."""
+        """Any request size: ceil(len / batch_size) batches, each padded to
+        its bucket, pipelined so chunk i+1 is prepared and launched before
+        chunk i is read back."""
         out: List[Detection] = []
         pending: Optional[Tuple] = None
         for i in range(0, len(images), self.batch_size):
-            chunk = images[i:i + self.batch_size]
-            batch, sizes = prepare_batch(chunk, self.size, self.batch_size,
-                                         self.letterbox, self.cfg.data.decode_backend)
-            det = self._detect(self._upload(batch))
+            launched = self._launch(images[i:i + self.batch_size])
             if pending is not None:
                 out.extend(unpack_detections(*pending, self.min_score,
                                              self.letterbox))
-            pending = (det, sizes)
+            pending = launched
         if pending is not None:
             out.extend(unpack_detections(*pending, self.min_score,
                                          self.letterbox))

@@ -290,7 +290,11 @@ def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
     for p in params:
         p.grad = None
     clear_batch_stats(state.module)
-    # TF32 for the backward convolutions too, which run after forward returns
+    # TF32 for the backward convolutions too, which run after forward returns.
+    # Holding the precision lock across backward is also what makes remat
+    # safe: a forward recomputed inside backward runs on autograd's thread
+    # and skips the lock (conv_precision). Keep every backward of a model
+    # inside this context (tests/test_torch_server.py checks it).
     with conv_precision(cfg.model.precision):
         loss, metrics = loss_fn(images, boxes, labels, valid)
         loss.backward()

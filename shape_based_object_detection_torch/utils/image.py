@@ -1,9 +1,12 @@
 """Image preprocessing (port of the JAX package's ``utils/image.py``).
 
-``normalize_images`` runs on the device inside detect and the train step;
+``normalize_images`` runs on the device inside detect and the train step,
+as does ``resize_images`` for multi-scale detection (``letterbox_images``
+is its aspect-preserving counterpart);
 the host helpers decode and resize (the first-party JPEG decoder of
-``csrc/jpeg_decoder.cpp``, or PIL's BILINEAR) and map boxes between pixels
-and the network input's normalized frame.
+``csrc/jpeg_decoder.cpp``, or PIL's BILINEAR) and map pixel boxes into the
+network input's normalized frame (``ops/boxes.boxes_to_original`` maps
+them back).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from shape_based_object_detection_torch.utils.device import constant
 
@@ -35,6 +39,47 @@ def normalize_images(
     return (x - m) / s
 
 
+def _bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of NCHW float32 as ``jax.image.resize(...,
+    "bilinear")``: half-pixel centres, and an axis that shrinks is filtered
+    with the triangle kernel widened by the scale (antialiasing). PyTorch's
+    antialiased path rounds differently on an axis that grows, so it runs
+    only on shrinking axes: where one axis shrinks and the other does not,
+    H is resized first and W second, each antialiased by its own scale."""
+    in_h, in_w = x.shape[-2:]
+    shrink_h, shrink_w = out_h < in_h, out_w < in_w
+    if shrink_h != shrink_w:
+        x = F.interpolate(x, size=(out_h, in_w), mode="bilinear",
+                          align_corners=False, antialias=shrink_h)
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=shrink_w)
+
+
+def resize_images(images: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear resize (B, H, W, 3) -> float32 (B, size, size, 3), on the
+    images' device."""
+    x = images.to(torch.float32).permute(0, 3, 1, 2)
+    return _bilinear(x, size, size).permute(0, 2, 3, 1)
+
+
+def letterbox_images(images: torch.Tensor,
+                     size: int) -> Tuple[torch.Tensor, float]:
+    """Aspect-preserving bilinear resize into a zero (size, size) canvas,
+    padded bottom and right, on the device. Every image of the batch shares
+    (H, W), so the scale is one number. Returns (float32 canvas (B, size,
+    size, 3), scale): a pixel box maps to ``box_px * scale / size``."""
+    b, h, w, c = images.shape
+    scale = size / max(h, w)
+    # max(1, ...) as letterbox_image_host: an extreme aspect ratio must not
+    # round the short side down to nothing
+    nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+    resized = _bilinear(images.to(torch.float32).permute(0, 3, 1, 2), nh, nw)
+    canvas = torch.zeros((b, size, size, c), dtype=torch.float32,
+                         device=images.device)
+    canvas[:, :nh, :nw, :] = resized.permute(0, 2, 3, 1)
+    return canvas, scale
+
+
 def letterbox_image_host(img: np.ndarray, size: int) -> np.ndarray:
     """Aspect-preserving BILINEAR resize into the top-left of a zero
     (size, size, 3) uint8 canvas (pad bottom/right)."""
@@ -48,23 +93,6 @@ def letterbox_image_host(img: np.ndarray, size: int) -> np.ndarray:
     canvas = np.zeros((size, size, 3), np.uint8)
     canvas[:nh, :nw] = resized
     return canvas
-
-
-def boxes_norm_to_original_px(boxes_norm: np.ndarray, h: int, w: int,
-                              letterbox: bool = False) -> np.ndarray:
-    """Normalized network-input boxes -> original pixel xyxy, clipped to the
-    image. Letterbox mode scales by max(H, W) (the content fills the
-    top-left of the canvas)."""
-    if letterbox:
-        boxes = boxes_norm * np.float32(max(h, w))
-    else:
-        boxes = boxes_norm * np.array([w, h, w, h], np.float32)
-    return np.stack([
-        np.clip(boxes[..., 0], 0, w),
-        np.clip(boxes[..., 1], 0, h),
-        np.clip(boxes[..., 2], 0, w),
-        np.clip(boxes[..., 3], 0, h),
-    ], axis=-1)
 
 
 def boxes_px_to_input_norm(boxes_px: np.ndarray, h: int, w: int,

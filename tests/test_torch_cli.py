@@ -164,8 +164,7 @@ def test_train_cli_unported_options_raise(tmp_path, args):
 
 
 @pytest.mark.parametrize("args", [["--quantize"], ["--quantize", "full"],
-                                  ["--act-scales", "x.json"], ["--artifact", "m.sbdx"],
-                                  ["--tta-hflip"], ["--tta-scales", "128,192"]])
+                                  ["--act-scales", "x.json"], ["--artifact", "m.sbdx"]])
 def test_eval_cli_unported_options_raise(args):
     with pytest.raises(NotImplementedError, match="item 6"):
         _eval("--config", "tiny_retinanet", "--max-batches", "1", *args)

@@ -24,15 +24,16 @@ def _cuda():
     return nms_cuda
 
 
-def _inputs(seed, b, n, classes=80):
-    """Class-offset candidates with padding rows, tied scores and zero-width
-    boxes, on the card."""
+def _inputs(seed, b, n, classes=80, zero_width=True):
+    """Class-offset candidates with padding rows, tied scores and (unless
+    ``zero_width`` is False) zero-width boxes, on the card."""
     rng = np.random.default_rng(seed)
     cxcy = rng.uniform(0.0, 1.0, (b, n, 2))
     wh = rng.uniform(0.02, 0.4, (b, n, 2))
     boxes = np.clip(np.concatenate([cxcy - wh / 2, cxcy + wh / 2], -1), 0, 1)
     boxes = boxes.astype(np.float32)
-    boxes[:, ::29, 2] = boxes[:, ::29, 0]
+    if zero_width:
+        boxes[:, ::29, 2] = boxes[:, ::29, 0]
     scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
     scores[:, 10:30] = scores[:, 3:4]
     cls = rng.integers(0, classes, (b, n)).astype(np.int32)
@@ -89,6 +90,135 @@ def test_nms_kernel_edge_cases(name):
                                   else x for x in nms_edge_cases()[name])
     same, _, _ = nms_bit_equal(boxes, scores, valid, t, m)
     assert same
+
+
+def _merged(seed, b, k, zero_width=True):
+    """Two candidate sets, each sorted by score as ``select_candidates``
+    returns them, concatenated as the hflip merge sends them to NMS: 2k
+    candidates per image, out of order."""
+    shifted, scores, cls, valid = _inputs(seed, b, 2 * k, zero_width=zero_width)
+    halves = []
+    for lo in (0, k):
+        order = torch.sort(scores[:, lo:lo + k], dim=-1, descending=True, stable=True)[1] + lo
+        halves.append(order)
+    order = torch.cat(halves, 1)
+    return (shifted.gather(1, order[..., None].expand(-1, -1, 4)), scores.gather(1, order),
+            cls.gather(1, order), valid.gather(1, order))
+
+
+@pytest.mark.cuda
+def test_nms_kernel_bit_equal_on_an_unsorted_tta_merge():
+    """(16, 2000, 100) as hflip TTA merges two top-1000 sets: the candidates
+    arrive out of order, so the kernel's sort runs; idx, valid and score
+    bits equal to the plain version."""
+    _cuda()
+    shifted, scores, _, valid = _merged(5, 16, 1000)
+    assert bool((scores[:, 1:] > scores[:, :-1]).any())
+    same, _, kept = nms_bit_equal(shifted, scores, valid, 0.5, 100)
+    assert same and kept > 0
+
+
+@pytest.mark.cuda
+def test_matrix_backend_runs_the_kernel():
+    """The reference's "matrix" backend name on CUDA tensors launches the
+    kernel once and returns its result."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch import config, detection
+
+    shifted, scores, cls, valid = _merged(3, 16, 1000, zero_width=False)
+    boxes = shifted - cls.float()[..., None] * 2.0  # back into [0, 1]
+    cfg = config.get_config("tiny_retinanet").model
+    cfg = config.dataclasses.replace(cfg, detect=config.dataclasses.replace(
+        cfg.detect, nms_backend="matrix"))
+    before = nms_cuda.launches
+    got = detection.run_nms(boxes, scores, cls, valid, cfg)
+    assert nms_cuda.launches == before + 1
+    want = detection.run_nms(boxes, scores, cls, valid, cfg, backend="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_soft_nms_on_the_card_equals_the_cpu():
+    """Soft-NMS (sigma 0.5) on the card against its run on the CPU: valid
+    and indices equal, scores within 1e-6."""
+    _cuda()
+    shifted, scores, cls, valid = _merged(7, 4, 500)
+    boxes = shifted - cls.float()[..., None] * 2.0
+    got = nms.batched_class_aware_soft_nms(boxes, scores, cls, valid, 0.5, 0.05, 100)
+    want = nms.batched_class_aware_soft_nms(boxes.cpu(), scores.cpu(), cls.cpu(),
+                                            valid.cpu(), 0.5, 0.05, 100)
+    assert torch.equal(got.valid.cpu(), want.valid) and torch.equal(got.labels.cpu(),
+                                                                    want.labels)
+    assert torch.equal(got.boxes.cpu(), want.boxes)
+    assert float((got.scores.cpu() - want.scores).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_tta_merge_above_the_kernel_limit_raises():
+    """hflip TTA with pre_nms_top_k above 2048 merges more than the
+    kernel's 4096 candidates per image: the wrapper raises, naming the
+    limit, and nothing falls back."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch import config, detection
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    cfg = config.get_config("tiny_retinanet").model
+    cfg = config.dataclasses.replace(cfg, detect=config.dataclasses.replace(
+        cfg.detect, score_threshold=0.0, tta_hflip=True, pre_nms_top_k=2100))
+    module, anchors = build_model(cfg)
+    images = np.zeros((1, 128, 128, 3), np.uint8)
+    before = nms_cuda.launches
+    with pytest.raises(ValueError, match=str(nms_cuda.MAX_CANDIDATES)):
+        detection.make_detect_fn(module, anchors, cfg)(images)
+    assert nms_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_tta_detect_and_server_on_the_card():
+    """The tiny RetinaNet with hflip TTA on the card: one K1 launch per
+    detect, detections matched to the CPU's; then a bucketed Predictor
+    behind the HTTP server answers a request."""
+    nms_cuda = _cuda()
+    import io
+    import json
+    import urllib.request
+
+    from PIL import Image
+
+    from shape_based_object_detection_torch import config, detection
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.server import DetectionServer
+    from shape_based_object_detection_torch.serving import Predictor
+
+    cfg = config.get_config("tiny_retinanet")
+    model = config.dataclasses.replace(cfg.model, detect=config.dataclasses.replace(
+        cfg.model.detect, score_threshold=0.0, tta_hflip=True))
+    cpu_module, cpu_anchors = build_model(model, device="cpu")
+    module, anchors = build_model(model)
+    images = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    before = nms_cuda.launches
+    got = detection.make_detect_fn(module, anchors, model)(images)
+    assert nms_cuda.launches == before + 1
+    want = detection.make_detect_fn(cpu_module, cpu_anchors, model, device="cpu")(images)
+    assert torch.equal(got.valid.cpu(), want.valid) and bool(want.valid.any())
+    v = want.valid
+    assert float((got.scores.cpu()[v] - want.scores[v]).abs().max()) <= 1e-3
+
+    pred = Predictor(config.dataclasses.replace(cfg, model=model), batch_size=4,
+                     bucket_sizes=(1, 2, 4))
+    pred.warmup()
+    server = DetectionServer(pred, port=0)
+    server.start()
+    try:
+        buf = io.BytesIO()
+        Image.fromarray(images[0, :90]).save(buf, format="PNG")
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/detect",
+                                     data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.loads(r.read())
+        assert out["detections"] and (out["height"], out["width"]) == (90, 128)
+    finally:
+        server.close()
 
 
 def _match_case(seed, b, a, g):

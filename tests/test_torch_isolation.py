@@ -94,6 +94,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         assert next(module.parameters()).device.type == "cpu"
 
 
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The multi-scale detectors, the bucketed Predictor and the serving
+    CLIs run on the card by default, and raise without one."""
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.cli import detect_cli, serve_cli
+    from shape_based_object_detection_torch.detection import (
+        MultiScaleBatchDetector, MultiScaleDetector,
+    )
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.serving import Predictor
+
+    _no_cuda(monkeypatch)
+    cfg = config.get_config("tiny_retinanet")
+    module, _ = build_model(cfg.model, device="cpu")
+    for cls in (MultiScaleBatchDetector, MultiScaleDetector):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg.model, module, [128, 160])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg, batch_size=2, bucket_sizes=(1, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--config", "tiny_retinanet", "--port", "0"])
+    (tmp_path / "a.png").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        detect_cli.main(["--config", "tiny_retinanet", "--image", str(tmp_path / "a.png")])
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     from shape_based_object_detection_torch.ops import nms_cuda
 
@@ -112,7 +138,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 def test_run_nms_routes_by_device_and_backend():
     """'auto' on CPU tensors is the plain version; 'cuda' (and the
     reference's 'pallas') means the kernel and so raises on CPU tensors;
-    unported options raise NotImplementedError."""
+    the reference's 'matrix' runs as 'auto'; Soft-NMS runs on the CPU
+    tensors it is given."""
     from shape_based_object_detection_torch import config
     from shape_based_object_detection_torch.detection import run_nms
     from shape_based_object_detection_torch.ops import nms as nms_lib
@@ -133,12 +160,11 @@ def test_run_nms_routes_by_device_and_backend():
     for backend in ("cuda", "pallas"):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             run_nms(boxes, scores, classes, valid, cfg, backend=backend)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_nms(boxes, scores, classes, valid, cfg, backend="matrix")
+    matrix = run_nms(boxes, scores, classes, valid, cfg, backend="matrix")
+    assert all(torch.equal(a, b) for a, b in zip(matrix, want))
     soft = config.dataclasses.replace(
         cfg, detect=config.dataclasses.replace(cfg.detect, soft_nms_sigma=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_nms(boxes, scores, classes, valid, soft)
+    assert not run_nms(boxes, scores, classes, valid, soft).valid.is_cuda
 
 
 def _match_inputs():
