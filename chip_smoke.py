@@ -83,8 +83,8 @@ BatchNorm, and checks them all:
      equal the same step's without remat (updated once).
 
 The groups after ``base`` drive the training application (``bn``,
-``pipelined``, ``app``, ``ckpt``, ``loader``) and the float serving tier
-(``serve``):
+``pipelined``, ``app``, ``ckpt``, ``loader``), the float serving tier
+(``serve``) and the int8 tiers with the exported artifact (``int8``):
 
  19. hflip TTA detect on R50-FPN-512 card vs CPU (float32, TF32 off, b1,
      matched detection by detection); K1 bit-equal to its plain version on
@@ -103,7 +103,29 @@ The groups after ``base`` drive the training application (``bn``,
      latency, batch occupancy, the server process's CPU and the share of
      the wall with a batch on the card; a lone request on the b1 bucket;
  22. detect_cli on SSD300 with --tta-hflip --tta-scales 300 --save-viz (K1
-     twice), and serve_cli as a subprocess: /healthz, /detect, SIGTERM.
+     twice), and serve_cli as a subprocess: /healthz, /detect, SIGTERM;
+ 23. each int8 tier's full-width forward card vs CPU (R50-FPN-512 and
+     SSD300, b1, float32 with TF32 off): weight-only within 0.02 / 0.002;
+     in the full tiers every int8 convolution of the card's forward
+     bit-equal to the CPU's on the card's input, and the whole forward
+     within 3x the CPU's own spread under 1e-7 noise at each int8
+     convolution's input;
+ 24. R50-FPN-512 bf16 Predictors (buckets 1 and 16) in the float, weights,
+     full-dynamic and full-static tiers (static scales calibrated on 4
+     synthetic b16 batches) and SSD300 config #1 Predictors: K1 once per
+     batch in every tier; every int8 product of R50 b16 and b1 and of
+     SSD300 b1 (the dilated conv6) bit-equal to its plain version on the
+     card; detect images/s and device ms per call, weight bytes, and the
+     full tiers' stage times (quantize, im2col, _int_mm, epilogue) against
+     cuDNN's bf16 convolutions of the same shapes; the 2-scale int8
+     detector (K1 3 times);
+ 25. the bf16 b16 float and full-static R50 programs exported on the card
+     and a tiny SSD on the CPU; a fresh process loads each with the port
+     alone: detections equal to the live Predictor's, one K1 launch per
+     call, the CPU artifact run on the card; meanwhile serve_cli serves the
+     static tier (--quantize full --act-scales) and an artifact (--artifact)
+     as subprocesses; last, ArtifactPredictor.predict against
+     Predictor.predict.
 
 Prints its results, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -111,6 +133,7 @@ without printing a result when there is no CUDA device or a phase fails.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve   # one group, no result line
+    python3 chip_smoke.py --only int8    # the int8 tiers and the artifact
 """
 
 from __future__ import annotations
@@ -2450,10 +2473,6 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
     /healthz, one /detect, then SIGTERM."""
     import contextlib
     import io
-    import queue
-    import signal
-    import threading
-    import urllib.request
 
     from PIL import Image
 
@@ -2479,10 +2498,25 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
     if not dets or drawn.shape != decoded[0].shape or launches != 2:
         raise RuntimeError("detect_cli with TTA did not run as expected")
 
+    ready_s = serve_cli_answers(
+        ["--config", "config2_retinanet_r50_infer", "--batch-size", "4",
+         "--set", "model.detect.score_threshold=0.0", "--set", "data.decode_backend=pil"],
+        bodies[0], "config #2 (b4, buckets 1-4)")
+    return {"detect_cli_launches": launches, "serve_cli_ready_s": ready_s}
+
+
+def serve_cli_answers(args, body, name):
+    """serve_cli with ``args`` as a subprocess on a free port: /healthz, one
+    /detect of ``body``, then SIGTERM, which must end it with exit 0.
+    Returns the seconds it took to be ready."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+
     proc = subprocess.Popen(
         [sys.executable, "-m", "shape_based_object_detection_torch.cli.serve_cli",
-         "--config", "config2_retinanet_r50_infer", "--port", "0", "--batch-size", "4",
-         "--set", "model.detect.score_threshold=0.0", "--set", "data.decode_backend=pil"],
+         "--port", "0", *args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT))
     lines: "queue.Queue" = queue.Queue()
@@ -2500,7 +2534,7 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
         port = int(seen[-1].split("http://127.0.0.1:")[1].split("/")[0])
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
             health = r.read()
-        answer = post(port, bodies[0])
+        answer = post(port, body)
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         seen += read_until(lines, "server stopped", 30)
@@ -2508,16 +2542,586 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    log(f"[cli] serve_cli config #2 (b4, buckets 1-4) subprocess: ready in {ready_s:.1f} s "
+    log(f"[cli] serve_cli {name} subprocess: ready in {ready_s:.1f} s "
         f"('{seen[1] if len(seen) > 1 else seen[0]}'), /healthz {health!r}, /detect "
         f"{len(answer['detections'])} detections for a {answer['width']}x{answer['height']} "
         f"image, SIGTERM -> exit {rc}, '{seen[-1]}'")
     if health != b"ok" or not answer["detections"] or rc != 0:
-        raise RuntimeError("serve_cli did not serve and stop cleanly")
-    return {"detect_cli_launches": launches, "serve_cli_ready_s": ready_s}
+        raise RuntimeError(f"serve_cli {name} did not serve and stop cleanly")
+    return ready_s
 
 
-PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve")
+# ---------------------------------------------------------------------------
+# group int8: the int8 serving tiers and the exported artifact
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense int8 tensor-core peak (NVIDIA's data sheet)
+INT8_OPS = 1979e12
+
+
+def smooth_images(torch, seed, b, size):
+    """(b, size, size, 3) uint8 on the card: 32 px noise resized up, smooth
+    as photos are."""
+    from shape_based_object_detection_torch.utils.image import resize_images
+
+    small = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, 32, 32, 3), dtype=np.uint8)).cuda()
+    return resize_images(small, size).round().clamp(0, 255).to(torch.uint8)
+
+
+def widen_heads(torch, module, cls_scale):
+    """Head convolutions at variance 1/fan_in (the CPU tests' weights), the
+    classification kernels scaled up: scores spread, and the int8 tiers'
+    activations in the heads are not near zero."""
+    from torch import nn
+
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if isinstance(m, nn.Conv2d) and name.startswith(("cls_head", "box_head")):
+                m.weight.normal_(0.0, (1.0 / m.weight[0].numel()) ** 0.5,
+                                 generator=torch.Generator().manual_seed(len(name)))
+        for name, m in module.named_modules():
+            if isinstance(m, nn.Conv2d) and (name == "cls_head.predict"
+                                             or name.startswith("cls_")):
+                m.weight.mul_(cls_scale)
+
+
+INT8_TIERS = (("weights", "weights", None), ("full_dynamic", "full", None),
+              ("full_static", "full", "static"))
+
+
+def int8_inputs(torch, quantize, module, x):
+    """{name: (input, output)} of every int8 convolution of ``module`` (its
+    int8 modes) in one forward of ``x``."""
+    seen, hooks = {}, []
+    for name, m in module.named_modules():
+        if isinstance(m, quantize.Int8Conv2d) and m.mode != "weights":
+            hooks.append(m.register_forward_hook(  # returns None: the output stays
+                lambda mod, args, out, name=name: seen.setdefault(name, (args[0], out)) and None))
+    try:
+        with torch.inference_mode():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def int8_noisy_forward(torch, quantize, module, x):
+    """``module(x)`` on the CPU with every int8 convolution's input
+    multiplied by 1 + 1e-7 * N(0, 1) (a fixed seed): last-bit noise in the
+    float layers, as another device's rounding gives."""
+    gen = torch.Generator().manual_seed(4)
+
+    def perturb(mod, args):
+        return (args[0] * (1 + 1e-7 * torch.randn(args[0].shape, generator=gen)),)
+
+    hooks = [m.register_forward_pre_hook(perturb) for m in module.modules()
+             if isinstance(m, quantize.Int8Conv2d) and m.mode != "weights"]
+    try:
+        with torch.inference_mode():
+            return module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def phase_int8_forward(torch, config, build_model, quantize):
+    """Each int8 tier's full-width forward, card vs CPU, one image, float32
+    with TF32 off, the same weights and, in the static tier, the same
+    scales: R50-FPN-512 (heads at variance 1/fan_in, as the CPU tests'
+    weights) and SSD300 (config #1). The weight-only tier is held to the
+    CPU tests' bound for the port against the JAX package (max |err| 0.02,
+    mean 0.002). In the full tiers every int8 convolution of the card's
+    forward is run on the CPU on the card's own input and must give the
+    card's output bit for bit; the whole forward is held to three times the
+    CPU's own spread when every int8 convolution's input is perturbed by
+    1e-7 relative noise (a float layer whose last bit differs between the
+    devices, such as BatchNorm's rsqrt, flips int8 levels downstream, and
+    the flips cascade as they do under that perturbation)."""
+    from shape_based_object_detection_torch.utils.image import normalize_images
+
+    out = {}
+    for name, cfg, cls_scale in (
+            ("R50-FPN-512", config.get_config("config2_retinanet_r50_infer").model, 4.0),
+            ("SSD300", config.get_config("config1_ssd300_infer").model, 2.0)):
+        cfg = dataclasses.replace(cfg, precision="highest")
+        cpu_model, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        if name.startswith("R50"):
+            widen_heads(torch, cpu_model, cls_scale)
+        else:
+            with torch.no_grad():
+                for i in range(len(cfg.anchors.aspect_ratios)):
+                    getattr(cpu_model, f"cls_{i}").weight.mul_(cls_scale)
+        gpu_model, _ = build_model(cfg, device="cuda")
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        size = cfg.image_size
+        image = np.random.default_rng(2).integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+        calib = np.random.default_rng(3).integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+        scales = quantize.calibrate_activation_scales(cpu_model, [calib])
+        x = normalize_images(torch.from_numpy(image)).permute(0, 3, 1, 2).contiguous()
+        tag = name.split("-")[0].lower()
+        for tier, mode, static in INT8_TIERS:
+            sc = scales if static else None
+            qc = quantize.quantize_module(cpu_model, mode, sc, device="cpu")
+            qg = quantize.quantize_module(gpu_model, mode, sc, device="cuda")
+            xg = x.cuda().contiguous(memory_format=torch.channels_last)
+            with torch.inference_mode():
+                ref = qc(x)
+                got = qg(xg)
+            spread_ = int8_noisy_forward(torch, quantize, qc, x) if mode == "full" else None
+            worst = max(float((o.cpu() - r).abs().max()) for o, r in zip(got, ref))
+            mean = max(float((o.cpu() - r).abs().mean()) for o, r in zip(got, ref))
+            if not all(torch.isfinite(o).all() for o in got):
+                raise RuntimeError(f"non-finite {name} {tier} forward output on the card")
+            rng_ = f"[{float(ref[0].min()):.2f}, {float(ref[0].max()):.2f}]"
+            if mode == "weights":
+                bound = (0.02, 0.002)
+                detail = "bound 0.02, 0.002"
+            else:
+                s_max = max(float((a - r).abs().max()) for a, r in zip(spread_, ref))
+                s_mean = max(float((a - r).abs().mean()) for a, r in zip(spread_, ref))
+                bound = (max(3 * s_max, 0.02), max(3 * s_mean, 0.002))
+                # every int8 convolution of the card's forward, on the CPU
+                # with the card's input
+                card = int8_inputs(torch, quantize, qg, xg)
+                cpu_mods = dict(qc.named_modules())
+                for conv_name, (xin, yout) in card.items():
+                    with torch.inference_mode():
+                        want = cpu_mods[conv_name](xin.cpu())
+                    if not torch.equal(yout.cpu(), want):
+                        raise RuntimeError(
+                            f"{name} {tier}: int8 convolution {conv_name} on the card differs "
+                            f"from the CPU on the same input: max |err| "
+                            f"{float((yout.cpu() - want).abs().max())}")
+                detail = (f"{len(card)} int8 convolutions bit-equal to the CPU on the card's "
+                          f"inputs; the CPU's own spread under 1e-7 noise at each int8 "
+                          f"convolution's input max "
+                          f"{s_max:.3e}, mean {s_mean:.3e}; bound {bound[0]:.3e}, "
+                          f"{bound[1]:.3e}")
+                out[f"int8_{tag}_{tier}_cpu_noise_spread_max"] = s_max
+            log(f"[int8] {name} {tier} forward card vs CPU (fp32, TF32 off, b1): max |err| "
+                f"{worst:.3e}, mean {mean:.3e} ({detail}), logits range {rng_}")
+            if worst > bound[0] or mean > bound[1]:
+                raise RuntimeError(f"{name} {tier} forward on the card differs from the CPU")
+            out[f"int8_{tag}_{tier}_card_vs_cpu_max_abs_err"] = worst
+            out[f"int8_{tag}_{tier}_card_vs_cpu_mean_abs_err"] = mean
+            del qc, qg
+    return out
+
+
+class Int8Capture:
+    """``with Int8Capture(torch, quantize, module) as calls:`` keeps, for
+    every s8xs8->s32 product the card computes, the Int8Conv2d, its float
+    input, the int8 operands and the card's int32 result."""
+
+    def __init__(self, torch, quantize, module):
+        self.torch, self.q, self.module = torch, quantize, module
+        self.calls, self.inputs = [], []
+
+    def __enter__(self):
+        self.orig = self.q.int8_conv2d_cuda
+
+        def capture(xq, wq, stride, padding, dilation):
+            out = self.orig(xq, wq, stride, padding, dilation)
+            self.calls.append((xq, wq, list(stride), list(padding), list(dilation), out))
+            return out
+
+        self.q.int8_conv2d_cuda = capture
+        self.hooks = [m.register_forward_pre_hook(
+            lambda mod, args: self.inputs.append((mod, args[0])))
+            for m in self.module.modules()
+            if isinstance(m, self.q.Int8Conv2d) and m.mode != "weights"]
+        return self
+
+    def __exit__(self, *exc):
+        self.q.int8_conv2d_cuda = self.orig
+        for h in self.hooks:
+            h.remove()
+
+
+def int8_product_check(torch, quantize, detect, module, images, name):
+    """One forward of ``detect`` on ``images`` with every int8 product
+    captured; each against the plain version on the same operands on the
+    card (float64, cuDNN off: exact), bit for bit. Returns (the capture,
+    calls per forward, distinct shapes)."""
+    with Int8Capture(torch, quantize, module) as cap:
+        detect(images)
+    torch.cuda.synchronize()
+    shapes = set()
+    with torch.backends.cudnn.flags(enabled=False):
+        for xq, wq, stride, padding, dilation, out in cap.calls:
+            want = quantize.int8_conv2d_plain(xq, wq, stride, padding, dilation)
+            shapes.add((tuple(xq.shape), tuple(wq.shape), tuple(stride), tuple(dilation)))
+            if not torch.equal(out, want):
+                raise RuntimeError(
+                    f"the int8 product differs from its plain version at {name}: x "
+                    f"{tuple(xq.shape)}, w {tuple(wq.shape)}, stride {stride}, padding "
+                    f"{padding}, dilation {dilation}: max |err| "
+                    f"{int((out.long() - want.long()).abs().max())}")
+    if len(cap.calls) != len(cap.inputs) or not cap.calls:
+        raise RuntimeError(f"{name}: {len(cap.calls)} products for {len(cap.inputs)} int8 "
+                           "convolutions")
+    log(f"[int8] product vs plain at {name}: {len(cap.calls)} products per forward, "
+        f"{len(shapes)} distinct shapes, all bit-equal (int32)"
+        + (", dilated: " + ", ".join(f"x {s[0]} w {s[1]} d {s[3]}" for s in shapes
+                                     if s[3] != (1, 1)) if any(s[3] != (1, 1) for s in shapes)
+           else ""))
+    return cap, len(cap.calls), len(shapes)
+
+
+def int8_stage_times(torch, quantize, cap, name):
+    """Per stage, summed over one forward's int8 convolutions (CUDA events,
+    the median of 5 calls each): quantize (abs-max, round, clamp), im2col,
+    _int_mm, the epilogue; beside them cuDNN's bf16 convolution of the same
+    shapes, and the product's bound at the card's int8 peak."""
+    import torch.nn.functional as F
+
+    sums = dict.fromkeys(("quantize_ms", "im2col_ms", "int_mm_ms", "epilogue_ms",
+                          "cudnn_bf16_ms", "int_mm_bound_ms"), 0.0)
+
+    def med(fn):
+        return float(np.median(cuda_times_ms(fn, iters=5, warmup=2)))
+
+    before = quantize.launches
+    for (mod, x), (xq, wq, stride, padding, dilation, acc) in zip(cap.inputs, cap.calls):
+        kh, kw = wq.shape[1:3]
+        a = quantize.im2col_nhwc(xq, kh, kw, stride, padding, dilation)
+        bt = quantize.gemm_weight(wq).t()
+        _, ls = mod.quantize_input(x)
+        xb = x.to(torch.bfloat16)
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        sums["quantize_ms"] += med(lambda: mod.quantize_input(x))
+        sums["im2col_ms"] += med(lambda: quantize.im2col_nhwc(xq, kh, kw, stride, padding,
+                                                              dilation))
+        sums["int_mm_ms"] += med(lambda: torch._int_mm(a, bt))
+        sums["epilogue_ms"] += med(lambda: mod.dequantize_output(acc, ls, x.dtype))
+        sums["cudnn_bf16_ms"] += med(lambda: F.conv2d(xb, wb, None, stride, padding,
+                                                      dilation))
+        m, o, k = acc.numel() // acc.shape[-1], wq.shape[0], kh * kw * wq.shape[3]
+        sums["int_mm_bound_ms"] += max((m * k + k * o + 4 * m * o) / HBM_BYTES_PER_S,
+                                       2.0 * m * k * o / INT8_OPS) * 1e3
+    quantize.launches = before
+    log(f"[int8] stages at {name}, summed over {len(cap.calls)} convolutions (median of 5 "
+        "CUDA-event calls each): " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
+    return sums
+
+
+def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts):
+    """R50-FPN-512 bf16 Predictors (buckets 1 and 16, seed 0) in each tier,
+    static scales calibrated on 4 synthetic b16 batches; SSD300 config #1
+    (fp32, b1) Predictors. K1 once per batch in every tier; the int8
+    product bit-equal to its plain version at every full-int8 shape of R50
+    b16 and b1 and SSD300 b1; detect images/s and device ms per call; the
+    stage times of the full tiers; weight bytes on the card."""
+    cfg = serving_config(config, "bfloat16")
+    t = time.perf_counter()
+    base = serving.Predictor(cfg, batch_size=16, device="cuda", bucket_sizes=(1, 16))
+    calib = [smooth_images(torch, 60 + i, 16, 512) for i in range(4)]
+    scales = quantize.calibrate_activation_scales(base.module, calib, cfg.data)
+    calib_s = time.perf_counter() - t
+    log(f"[int8] calibrated {len(scales)} activation scales on 4 synthetic b16 batches "
+        f"(R50 bf16; model build included) in {calib_s:.2f} s")
+    preds = {"float": base}
+    for tier, mode, static in INT8_TIERS:
+        preds[tier] = serving.Predictor(cfg, batch_size=16, device="cuda", bucket_sizes=(1, 16),
+                                        quantize=mode,
+                                        activation_scales=scales if static else None)
+    out, k1 = {"int8_calibrate_s": calib_s}, {}
+    rng = np.random.default_rng(61)
+    requests = [[rng.integers(0, 256, (int(rng.integers(200, 900)), int(rng.integers(200, 900)),
+                                       3), dtype=np.uint8) for _ in range(n)] for n in (16, 1)]
+    x16 = smooth_images(torch, 62, 16, 512)
+    for tier, pred in preds.items():
+        reset_counts()
+        quantize.launches = 0
+        answers = [pred.predict(r) for r in requests]
+        torch.cuda.synchronize()
+        check_answers(requests, answers)
+        k1[f"int8_{tier}_launches"] = nms_cuda.launches
+        if nms_cuda.launches != len(requests):
+            raise RuntimeError(f"{tier}: K1 ran {nms_cuda.launches} times for "
+                               f"{len(requests)} batches")
+        wbytes = sum(t.nbytes for t in pred.module.state_dict().values())
+        out[f"int8_r50_{tier}_weight_bytes"] = wbytes
+        log(f"[int8] R50 bf16 Predictor {tier}: requests of 16 and 1 answered, K1 launches "
+            f"{nms_cuda.launches} for 2 batches, int8 products {quantize.launches}, weight "
+            f"bytes on the card {wbytes}")
+        for b in (16, 1):
+            x = x16[:b]
+            times = cuda_times_ms(lambda: pred._detect(x), iters=20)
+            dev_ms, _ = device_ms_per_call(lambda: pred._detect(x), calls=5)
+            ms = float(np.median(times))
+            out[f"int8_r50_{tier}_b{b}_median_ms"] = ms
+            out[f"int8_r50_{tier}_b{b}_device_ms"] = dev_ms
+            log(f"[timing] R50 detect b{b} bf16 {tier}: {spread(times)}, {b * 1e3 / ms:.1f} "
+                f"images/s; device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms per call")
+    log(f"[int8] tiers served and timed ({time.perf_counter() - t:.1f} s since the group's "
+        "Predictors were started)")
+    products = {}
+    for tier in ("full_dynamic", "full_static"):
+        for b in (16, 1):
+            pred = preds[tier]
+            cap, calls, n_shapes = int8_product_check(
+                torch, quantize, pred._detect, pred.module, x16[:b], f"R50 b{b} bf16 {tier}")
+            products[f"r50_b{b}_{tier}"] = calls
+            if (tier, b) != ("full_static", 1):
+                out[f"int8_r50_{tier}_b{b}_stages"] = int8_stage_times(
+                    torch, quantize, cap, f"R50 b{b} bf16 {tier}")
+            del cap
+    log(f"[int8] products checked and staged ({time.perf_counter() - t:.1f} s)")
+    # the 2-scale batch detector in the static tier: S + 1 launches per batch
+    ms = detection_multiscale(torch, base, scales)
+    reset_counts()
+    ms(x16)
+    torch.cuda.synchronize()
+    k1["int8_multiscale_launches"] = nms_cuda.launches
+    log(f"[int8] MultiScaleBatchDetector (512, 640) b16 full_static: K1 launches "
+        f"{nms_cuda.launches} for 1 batch")
+    if nms_cuda.launches != 3:
+        raise RuntimeError("the 2-scale int8 detector did not launch K1 3 times")
+    times = cuda_times_ms(lambda: ms(x16), iters=10)
+    out["int8_multiscale_full_static_b16_median_ms"] = float(np.median(times))
+    log(f"[timing] 2-scale (512, 640) b16 bf16 full_static: {spread(times)}")
+    del ms
+
+    # SSD300, config #1 (fp32, b1)
+    scfg = config.get_config("config1_ssd300_infer")
+    s1 = smooth_images(torch, 63, 1, 300)
+    for tier, mode in (("float", False), ("weights", "weights"), ("full_dynamic", "full")):
+        pred = serving.Predictor(scfg, batch_size=1, device="cuda", quantize=mode)
+        reset_counts()
+        pred.predict(requests[1])
+        torch.cuda.synchronize()
+        k1[f"int8_ssd300_{tier}_launches"] = nms_cuda.launches
+        if nms_cuda.launches != 1:
+            raise RuntimeError(f"SSD300 {tier}: K1 ran {nms_cuda.launches} times for 1 batch")
+        if mode == "full":
+            _, calls, _ = int8_product_check(torch, quantize, pred._detect, pred.module, s1,
+                                             "SSD300 b1 fp32 full_dynamic")
+            products["ssd300_b1_full_dynamic"] = calls
+            continue
+        times = cuda_times_ms(lambda: pred._detect(s1), iters=30)
+        dev_ms, _ = device_ms_per_call(lambda: pred._detect(s1), calls=5)
+        ms_ = float(np.median(times))
+        out[f"int8_ssd300_{tier}_b1_median_ms"] = ms_
+        out[f"int8_ssd300_{tier}_b1_device_ms"] = dev_ms
+        out[f"int8_ssd300_{tier}_weight_bytes"] = sum(
+            t.nbytes for t in pred.module.state_dict().values())
+        log(f"[timing] SSD300 detect b1 fp32 {tier}: {spread(times)}, {1e3 / ms_:.1f} images/s; "
+            f"device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms per call")
+    out["int8_products_per_forward"] = products
+    return out, k1, preds, scales
+
+
+def detection_multiscale(torch, base, scales):
+    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
+
+    cfg = base.cfg.model
+    return MultiScaleBatchDetector(cfg, base.module, (512, 640), base.cfg.data, "cuda",
+                                   quantize="full", activation_scales=scales)
+
+
+def artifact_client(folder):
+    """Loads each artifact of ``folder`` with the port alone, in a fresh
+    process, on the card; runs it once on its batch; writes the detections
+    (``<name>_out.npz``), and the load seconds and K1 launches of the call
+    (``client.json``). Run as ``python3 -c "import sys, chip_smoke;
+    chip_smoke.artifact_client(sys.argv[1])" FOLDER`` from the repo root."""
+    import torch
+
+    from shape_based_object_detection_torch.export import load_artifact
+    from shape_based_object_detection_torch.ops import nms_cuda
+
+    report = {}
+    for name, batch in (("float", "batch16"), ("full_static", "batch16"),
+                        ("tiny_cpu", "tiny_batch")):
+        t = time.perf_counter()
+        model = load_artifact(os.path.join(folder, f"{name}.sbdx"))
+        load_s = time.perf_counter() - t
+        images = np.load(os.path.join(folder, f"{batch}.npy"))
+        nms_cuda.launches = 0
+        det = model(images)
+        torch.cuda.synchronize()
+        report[name] = {"load_s": load_s, "launches": nms_cuda.launches,
+                        "exported_on": model.header["device"], "runs_on": str(model.device)}
+        np.savez(os.path.join(folder, f"{name}_out.npz"),
+                 **{k: getattr(det, k).cpu().numpy() for k in det._fields})
+    with open(os.path.join(folder, "client.json"), "w") as f:
+        json.dump(report, f)
+
+
+def int8_export_artifacts(torch, config, export, detection, build_model, preds, scales,
+                          workdir):
+    """Exports the bf16 b16 float and full-static R50 programs on the card
+    and the tiny SSD on the CPU, with the batches and the live detections
+    to compare with, and starts ``artifact_client`` on them in a fresh
+    process. Returns (numbers, folder, the client, what to compare)."""
+    folder = os.path.join(workdir, "artifacts")
+    os.makedirs(folder)
+    out = {}
+    x16 = smooth_images(torch, 64, 16, 512)
+    np.save(os.path.join(folder, "batch16.npy"), x16.cpu().numpy())
+    base = preds["float"]
+    live = {}
+    for name, kw in (("float", {}), ("full_static", dict(
+            quantize=True, int8_activations=True, activation_scales=scales))):
+        t = time.perf_counter()
+        blob = export.export_detect(base.module, base.anchors, base.cfg.model, base.cfg.data,
+                                    16, "cuda", **kw)
+        out[f"artifact_{name}_export_s"] = time.perf_counter() - t
+        out[f"artifact_{name}_bytes"] = len(blob)
+        export.save_artifact(blob, os.path.join(folder, f"{name}.sbdx"))
+        live[name] = preds[name]._detect(x16)
+        log(f"[artifact] exported R50 bf16 b16 {name} on the card in "
+            f"{out[f'artifact_{name}_export_s']:.2f} s: {len(blob)} bytes")
+    tiny = config.resolve_config("tiny_ssd", ["model.detect.score_threshold=0.0"])
+    t = time.perf_counter()
+    blob = export.export_from_config(tiny, batch_size=1, device="cpu")
+    out["artifact_tiny_cpu_export_s"] = time.perf_counter() - t
+    export.save_artifact(blob, os.path.join(folder, "tiny_cpu.sbdx"))
+    tiny_batch = np.random.default_rng(65).integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
+    np.save(os.path.join(folder, "tiny_batch.npy"), tiny_batch)
+    tm, ta = build_model(tiny.model, device="cpu")
+    live["tiny_cpu"] = detection.make_detect_fn(tm, ta, tiny.model, tiny.data,
+                                                device="cpu")(tiny_batch)
+    client = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.artifact_client(sys.argv[1])",
+         folder], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    return out, folder, client, live
+
+
+def int8_check_artifacts(client, folder, live):
+    """Waits for ``artifact_client`` and holds what it read back: the R50
+    detections equal the live Predictor's (labels and valid equal, boxes
+    and scores within 1e-5), one K1 launch per call, and the CPU artifact
+    on the card matches the CPU's detect."""
+    try:
+        text, _ = client.communicate(timeout=600)
+    finally:
+        if client.poll() is None:
+            client.kill()
+            client.wait()
+    if client.returncode != 0:
+        raise RuntimeError(f"artifact client failed:\n{text[-4000:]}")
+    with open(os.path.join(folder, "client.json")) as f:
+        report = json.load(f)
+    out = {}
+    for name in ("float", "full_static"):
+        got = np.load(os.path.join(folder, f"{name}_out.npz"))
+        want = {k: getattr(live[name], k).cpu().numpy() for k in live[name]._fields}
+        same = (np.array_equal(got["labels"], want["labels"])
+                and np.array_equal(got["valid"], want["valid"]))
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in ("boxes", "scores"))
+        log(f"[artifact] {name}: reloaded in a fresh process in {report[name]['load_s']:.2f} s "
+            f"(exported on {report[name]['exported_on']}, runs on {report[name]['runs_on']}); "
+            f"labels and valid equal={same}, boxes and scores max |err| {err:.3e} against the "
+            f"live Predictor ({int(want['valid'].sum())} detections); K1 launches "
+            f"{report[name]['launches']} for 1 call")
+        if not same or err > 1e-5 or report[name]["launches"] != 1:
+            raise RuntimeError(f"the reloaded {name} artifact differs from the live Predictor")
+        out[f"artifact_{name}_load_s"] = report[name]["load_s"]
+        out[f"artifact_{name}_max_abs_err"] = err
+    out["launches"] = {name: r["launches"] for name, r in report.items()}
+    got, want = np.load(os.path.join(folder, "tiny_cpu_out.npz")), live["tiny_cpu"]
+    vg, vw = got["valid"][0], want.valid[0].numpy()
+    n = matched(tuple(got[k][0][vg] for k in ("boxes", "scores", "labels")),
+                tuple(getattr(want, k)[0].numpy()[vw] for k in ("boxes", "scores", "labels")))
+    log(f"[artifact] tiny SSD exported on the CPU, moved to {report['tiny_cpu']['runs_on']} at "
+        f"load in {report['tiny_cpu']['load_s']:.2f} s: K1 launches "
+        f"{report['tiny_cpu']['launches']}, {n} detections matched the CPU's detect (label, "
+        "IoU >= 0.99, |dscore| <= 1e-3)")
+    if report["tiny_cpu"]["launches"] != 1 or n == 0:
+        raise RuntimeError("the CPU artifact did not run K1 on the card")
+    return out
+
+
+def int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, preds, folder):
+    """ArtifactPredictor.predict against Predictor.predict on 16 images of
+    200-900 px, in turns (host clock), each artifact once through K1."""
+    out = {}
+    rng = np.random.default_rng(66)
+    request = [rng.integers(0, 256, (int(rng.integers(200, 900)), int(rng.integers(200, 900)),
+                                     3), dtype=np.uint8) for _ in range(16)]
+    for name in ("float", "full_static"):
+        ap = serving.ArtifactPredictor(os.path.join(folder, f"{name}.sbdx"))
+        reset_counts()
+        ap.predict(request)
+        torch.cuda.synchronize()
+        if nms_cuda.launches != 1:
+            raise RuntimeError(f"ArtifactPredictor {name}: K1 ran {nms_cuda.launches} times")
+        walls = {"predictor": [], "artifact": []}
+        for order in (("predictor", "artifact"), ("artifact", "predictor")) * 3:
+            for who in order:
+                p = preds[name] if who == "predictor" else ap
+                t = time.perf_counter()
+                p.predict(request)
+                walls[who].append(time.perf_counter() - t)
+        for who, w in walls.items():
+            out[f"{who}_{name}_predict_16_images_per_s"] = 16.0 / float(np.median(w))
+        log(f"[artifact] {name} predict of 16 images of 200-900 px (host clock, medians of 6 "
+            f"in turns): ArtifactPredictor "
+            f"{out[f'artifact_{name}_predict_16_images_per_s']:.1f} images/s, Predictor "
+            f"{out[f'predictor_{name}_predict_16_images_per_s']:.1f}")
+        del ap
+    return out
+
+
+def phase_int8(torch, config, serving, detection, build_model, nms_cuda, reset_counts,
+               workdir):
+    """Group int8, in order: the tiers' full-width forwards card vs CPU; the
+    bf16 Predictors in every tier (K1 gates, the int8 product gates,
+    times); the artifacts exported, then read back in a fresh process while
+    serve_cli serves the static tier and an artifact (three processes at
+    once); last, ArtifactPredictor against Predictor."""
+    from shape_based_object_detection_torch import export, quantize
+
+    log(f"[int8] the group's numbers are this card's: {nvidia_smi_line()}")
+    t = time.perf_counter()
+    out = phase_int8_forward(torch, config, build_model, quantize)
+    log(f"[int8] card vs CPU forwards took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    serve_out, k1, preds, scales = phase_int8_serving(torch, config, serving, quantize,
+                                                      nms_cuda, reset_counts)
+    out.update(serve_out)
+    log(f"[int8] Predictors, products and times took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    art_out, folder, client, live = int8_export_artifacts(
+        torch, config, export, detection, build_model, preds, scales, workdir)
+    out.update(art_out)
+    try:
+        scales_path = os.path.join(workdir, "scales.json")
+        quantize.save_activation_scales(scales_path, scales)
+        bodies, _ = encoded_requests(1, 67)
+        runs = {  # both at once, beside the artifact client
+            "serve_cli_full_static_ready_s": (
+                ["--config", "config2_retinanet_r50_infer", "--batch-size", "4", "--quantize",
+                 "full", "--act-scales", scales_path, "--set", "model.dtype=\"bfloat16\"",
+                 "--set", "model.detect.score_threshold=0.0",
+                 "--set", "data.decode_backend=pil"],
+                bodies[0], "config #2 bf16 --quantize full --act-scales"),
+            "serve_cli_artifact_ready_s": (
+                ["--artifact", os.path.join(folder, "full_static.sbdx")], bodies[0],
+                "--artifact (R50 bf16 b16 full_static)")}
+        with ThreadPoolExecutor(len(runs)) as pool:
+            ready = {k: pool.submit(serve_cli_answers, *v) for k, v in runs.items()}
+            out.update({k: f.result() for k, f in ready.items()})
+    except BaseException:
+        client.kill()
+        client.wait()
+        raise
+    checked = int8_check_artifacts(client, folder, live)
+    # one K1 launch per call of each loaded artifact
+    k1.update({f"int8_artifact_{k}_launches": v for k, v in checked.pop("launches").items()})
+    out.update(checked)
+    out.update(int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, preds, folder))
+    log(f"[int8] artifacts, their client and serve_cli took {time.perf_counter() - t:.1f} s")
+    return out, k1
+
+
+PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8")
 
 
 def main() -> int:
@@ -2725,6 +3329,14 @@ def run_phases(torch, want, only, t0, workdir) -> int:
         # batch; its time and bound on the hflip and 2-scale merges
         k1.update({**serve_k1, "serve_launches": serve_launches,
                    "detect_cli_launches": clis["detect_cli_launches"]})
+    # the int8 serving tiers and the exported artifact
+    if want("int8"):
+        int8_out, int8_k1 = phase_int8(torch, config, serving, detection, build_model,
+                                       nms_cuda, reset_counts, workdir)
+        results.update(int8_out)
+        # K1 once per batch in every tier, 3 per 2-scale int8 batch, once per
+        # artifact call
+        k1.update(int8_k1)
 
     log(json.dumps(results))
     if only:

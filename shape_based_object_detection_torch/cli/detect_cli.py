@@ -6,6 +6,9 @@ on the card (``--device cpu`` for the CPU).
 
 Prints the detections at or above ``--min-score`` as JSON (1-based labels):
 a list for one file, a {file name: list} mapping for a directory.
+``--quantize [--int8-activations [--act-scales scales.json]]`` serves an
+int8 tier; ``--artifact model.sbdx`` runs an exported program instead of
+building the model.
 """
 
 from __future__ import annotations
@@ -13,9 +16,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-# the int8 and exported-artifact tiers these flags switch on
-UNPORTED = ("--quantize", "--int8-activations", "--act-scales", "--artifact")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -31,9 +31,15 @@ def _parser() -> argparse.ArgumentParser:
                         "drawn (utils/viz.py)")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--min-score", type=float, default=0.3)
-    p.add_argument("--quantize", action="store_true", help="not ported yet")
-    p.add_argument("--act-scales", default="", help="not ported yet")
-    p.add_argument("--int8-activations", action="store_true", help="not ported yet")
+    p.add_argument("--quantize", action="store_true",
+                   help="serve int8 weights (weight-only int8, dequantized in each "
+                        "convolution)")
+    p.add_argument("--act-scales", default="",
+                   help="with --int8-activations: calibrated activation-scales JSON "
+                        "(tools/calibrate_scales.py) for the static-scale int8 tier")
+    p.add_argument("--int8-activations", action="store_true",
+                   help="with --quantize: run eligible convolutions as s8xs8->s32 "
+                        "(dynamic per-image activation scales)")
     p.add_argument("--ema", action="store_true",
                    help="use the checkpoint's EMA weights")
     p.add_argument("--tta-hflip", action="store_true",
@@ -45,7 +51,9 @@ def _parser() -> argparse.ArgumentParser:
                         "augmentation (e.g. 512,640): one detect per scale on "
                         "shared weights, merged by one NMS; composes with "
                         "--tta-hflip")
-    p.add_argument("--artifact", default="", help="not ported yet")
+    p.add_argument("--artifact", default="",
+                   help="run an exported .sbdx artifact (tools/export_model.py) instead "
+                        "of building the model (--config/--checkpoint-dir ignored)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override (JSON-parsed values)")
@@ -53,7 +61,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_flags(args) -> None:
-    """The reference's conflict checks, then the flags of the next slice."""
+    """The reference's conflict checks."""
     if args.tta_scales and args.artifact:
         raise SystemExit(
             "--tta-scales cannot modify an exported --artifact (its program "
@@ -71,11 +79,6 @@ def _check_flags(args) -> None:
         raise SystemExit("--int8-activations requires --quantize")
     if args.act_scales and not args.int8_activations:
         raise SystemExit("--act-scales requires --int8-activations")
-    for flag in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            from shape_based_object_detection_torch.detection import unported_tier
-
-            raise unported_tier(f"{flag} (the int8 and exported-artifact serving tiers)")
 
 
 def _build_runner(args):
@@ -86,11 +89,21 @@ def _build_runner(args):
         enable_tta_hflip, parse_scales, restore_checkpoint_variables,
     )
     from shape_based_object_detection_torch.detection import (
-        MultiScaleDetector, detect_single_image, make_detect_fn,
+        MultiScaleDetector, detect_single_image,
     )
     from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.quantize import make_serving_detect
+    from shape_based_object_detection_torch.serving import ArtifactPredictor
     from shape_based_object_detection_torch.utils.device import resolve_device
 
+    if args.artifact:
+        predictor = ArtifactPredictor(args.artifact, device=args.device)
+
+        def run_artifact(img):
+            det = predictor.predict([img])[0]
+            return det.boxes, det.scores, det.labels
+
+        return run_artifact
     cfg = config_lib.resolve_config(args.config, args.overrides)
     if args.tta_hflip:
         cfg = enable_tta_hflip(cfg)
@@ -101,10 +114,13 @@ def _build_runner(args):
             module, args.checkpoint_dir, ema=args.ema), strict=True)
     elif args.ema:
         raise SystemExit("--ema requires --checkpoint-dir")
+    mode = "full" if args.int8_activations else "weights" if args.quantize else ""
     if args.tta_scales:
         return MultiScaleDetector(cfg.model, module, parse_scales(args.tta_scales),
-                                  cfg.data, dev, letterbox=cfg.data.letterbox)
-    detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev)
+                                  cfg.data, dev, letterbox=cfg.data.letterbox,
+                                  quantize=mode, activation_scales=args.act_scales or None)
+    detect, _ = make_serving_detect(module, anchors, cfg.model, cfg.data, mode, dev,
+                                    args.act_scales or None)
 
     def run(img):
         return detect_single_image(detect, img, cfg.model.image_size,

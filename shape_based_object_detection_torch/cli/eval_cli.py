@@ -4,7 +4,10 @@
         --config config3_ssd512_voc_train --checkpoint-dir ckpt --protocol voc
 
 Runs detect over a validation set on the card (``--device cpu`` for the
-CPU) and prints first-party COCO AP[.5:.95] or VOC mAP as JSON.
+CPU) and prints first-party COCO AP[.5:.95] or VOC mAP as JSON: in the
+float tier, an int8 tier (``--quantize [weights|full] [--act-scales]``,
+which measures the quantization's mAP drift), or an exported artifact
+(``--artifact``, the export's parity measurement).
 """
 
 from __future__ import annotations
@@ -15,9 +18,6 @@ import json
 import types
 
 import numpy as np
-
-# the int8 and exported-artifact tiers these flags switch on
-UNPORTED = ("--quantize", "--act-scales", "--artifact")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -43,9 +43,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="evaluate the checkpoint's EMA weights (a run trained "
                         "with --ema-decay > 0)")
     p.add_argument("--quantize", nargs="?", const="weights", default="",
-                   choices=["weights", "full"], help="not ported yet")
-    p.add_argument("--act-scales", default="", help="not ported yet")
-    p.add_argument("--artifact", default="", help="not ported yet")
+                   choices=["weights", "full"],
+                   help="evaluate an int8 tier instead of float: 'weights' (weight-only) "
+                        "or 'full' (s8xs8->s32 convolutions, dynamic activation scales)")
+    p.add_argument("--act-scales", default="",
+                   help="with --quantize full: calibrated activation-scales JSON "
+                        "(tools/calibrate_scales.py), the static-scale tier")
+    p.add_argument("--artifact", default="",
+                   help="evaluate an exported .sbdx artifact instead of checkpoint "
+                        "weights (weights, preprocessing and NMS are baked into its "
+                        "program; incompatible with --checkpoint-dir/--quantize/--ema/"
+                        "--tta-hflip/--tta-scales)")
     p.add_argument("--tta-hflip", action="store_true",
                    help="evaluate with horizontal-flip test-time augmentation "
                         "(one forward on the doubled batch, the mirrored "
@@ -70,43 +78,70 @@ def main(argv=None):
     from shape_based_object_detection_torch.cli.common import enable_tta_hflip, parse_scales
     from shape_based_object_detection_torch.cli.train_cli import build_dataset, upload
     from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.detection import (
-        MultiScaleBatchDetector, make_detect_fn, unported_tier,
-    )
+    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
     from shape_based_object_detection_torch.eval import Evaluator
     from shape_based_object_detection_torch.models.factory import build_model
     from shape_based_object_detection_torch.ops.boxes import boxes_to_original
+    from shape_based_object_detection_torch.quantize import make_serving_detect
     from shape_based_object_detection_torch.utils.device import resolve_device
 
     args = _parser().parse_args(argv)
-    for flag in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise unported_tier(f"{flag} (the int8 and exported-artifact serving tiers)")
     cfg = config_lib.resolve_config(args.config, args.overrides)
+    if args.artifact:
+        # the artifact is one frozen program: a flag that would alter it
+        # cannot apply
+        for flag, name in ((args.checkpoint_dir, "--checkpoint-dir"),
+                           (args.quantize, "--quantize"), (args.act_scales, "--act-scales"),
+                           (args.ema, "--ema"), (args.tta_hflip, "--tta-hflip"),
+                           (args.tta_scales, "--tta-scales")):
+            if flag:
+                raise SystemExit(f"--artifact is a frozen program: {name} cannot apply "
+                                 "(bake it in at export: tools/export_model.py)")
+    elif args.act_scales and args.quantize != "full":
+        raise SystemExit("--act-scales requires --quantize full")
     if args.tta_hflip:
         cfg = enable_tta_hflip(cfg)
     if args.dataset:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 dataset=args.dataset))
     dev = resolve_device(args.device)
-    module, anchors = build_model(cfg.model, dev)
-    if args.checkpoint_dir:
-        from shape_based_object_detection_torch.cli.common import (
-            restore_checkpoint_variables,
-        )
+    if args.artifact:
+        from shape_based_object_detection_torch.export import load_artifact
 
-        module.load_state_dict(restore_checkpoint_variables(
-            module, args.checkpoint_dir, ema=args.ema), strict=True)
-    elif args.ema:
-        raise SystemExit("--ema requires --checkpoint-dir")
-    if args.tta_scales:
-        try:
-            detect = MultiScaleBatchDetector(cfg.model, module,
-                                             parse_scales(args.tta_scales), cfg.data, dev)
-        except ValueError as e:  # e.g. SSD at a scale that changes its plan
-            raise SystemExit(str(e))
+        detect = load_artifact(args.artifact, dev)
+        header = detect.header
+        # the eval geometry must match the baked program: a mismatch would
+        # score wrongly resized pixels
+        for key, got in (("image_size", cfg.model.image_size),
+                         ("num_classes", cfg.model.num_classes),
+                         ("letterbox", cfg.data.letterbox)):
+            if header.get(key, got) != got:
+                raise SystemExit(f"artifact/config mismatch: header {key}="
+                                 f"{header.get(key)!r} but --config resolves to {got!r}")
+        # the artifact has one batch shape; batches_padded pads the tail to it
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, batch_size=header["batch_size"]))
     else:
-        detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev)
+        module, anchors = build_model(cfg.model, dev)
+        if args.checkpoint_dir:
+            from shape_based_object_detection_torch.cli.common import (
+                restore_checkpoint_variables,
+            )
+
+            module.load_state_dict(restore_checkpoint_variables(
+                module, args.checkpoint_dir, ema=args.ema), strict=True)
+        elif args.ema:
+            raise SystemExit("--ema requires --checkpoint-dir")
+        if args.tta_scales:
+            try:
+                detect = MultiScaleBatchDetector(
+                    cfg.model, module, parse_scales(args.tta_scales), cfg.data, dev,
+                    quantize=args.quantize, activation_scales=args.act_scales or None)
+            except ValueError as e:  # e.g. SSD at a scale that changes its plan
+                raise SystemExit(str(e))
+        else:
+            detect, _ = make_serving_detect(module, anchors, cfg.model, cfg.data,
+                                            args.quantize, dev, args.act_scales or None)
 
     # COCO: crowd regions ride along as ignore regions, and the area strata
     # (32^2/96^2 px) are in ORIGINAL-image pixels, from each image's size;

@@ -1,10 +1,11 @@
 """HTTP detection serving (port of the JAX package's ``cli/serve_cli.py``):
-``server.DetectionServer`` over a checkpoint, with dynamic batching into
+``server.DetectionServer`` over a checkpoint, in the float or an int8 tier,
+or over an exported ``.sbdx`` artifact, with dynamic batching into
 bucketed batches, on the card (``--device cpu`` for the CPU).
 
     python -m shape_based_object_detection_torch.cli.serve_cli \\
         --config config2_retinanet_r50_infer --checkpoint-dir ckpt \\
-        --batch-size 16 --port 8000
+        --quantize full --act-scales scales.json --batch-size 16 --port 8000
     curl -s -X POST --data-binary @img.jpg 'localhost:8000/detect?min_score=0.3'
 
 It warms every bucket up before it listens, prints the address it serves
@@ -17,9 +18,6 @@ import argparse
 import signal
 import threading
 
-# the int8 and exported-artifact tiers these flags switch on
-UNPORTED = ("--quantize", "--act-scales", "--artifact")
-
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
@@ -30,9 +28,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ema", action="store_true",
                    help="serve the checkpoint's EMA weights")
     p.add_argument("--quantize", nargs="?", const="weights", default="",
-                   choices=["weights", "full"], help="not ported yet")
-    p.add_argument("--act-scales", default="", help="not ported yet")
-    p.add_argument("--artifact", default="", help="not ported yet")
+                   choices=["weights", "full"],
+                   help="serve an int8 tier: 'weights' (weight-only) or 'full' "
+                        "(s8xs8->s32 convolutions)")
+    p.add_argument("--act-scales", default="",
+                   help="with --quantize full: calibrated activation-scales JSON "
+                        "(tools/calibrate_scales.py)")
+    p.add_argument("--artifact", default="",
+                   help="serve an exported .sbdx (tools/export_model.py) instead of "
+                        "building the model")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--bucket-sizes", default="auto",
                    help="comma-separated batch buckets (a small batch pads only "
@@ -58,19 +62,15 @@ def _stop(signum, frame):
 
 def main(argv=None):
     from shape_based_object_detection_torch import config as config_lib
-    from shape_based_object_detection_torch.detection import unported_tier
     from shape_based_object_detection_torch.server import DetectionServer
     from shape_based_object_detection_torch.serving import (
-        Predictor, default_bucket_sizes,
+        ArtifactPredictor, Predictor, default_bucket_sizes,
     )
 
     args = _parser().parse_args(argv)
     if args.artifact and (args.quantize or args.act_scales):
         raise SystemExit("--quantize/--act-scales cannot modify an exported "
                          "--artifact (they are set when it is exported)")
-    for flag in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise unported_tier(f"{flag} (the int8 and exported-artifact serving tiers)")
     names = None
     if args.class_names == "voc":
         from shape_based_object_detection_torch.data.voc import VOC_CLASSES
@@ -88,16 +88,25 @@ def main(argv=None):
     else:
         buckets = [int(b) for b in args.bucket_sizes.split(",")]
 
-    cfg = config_lib.resolve_config(args.config, args.overrides)
-    pred = Predictor(cfg, batch_size=args.batch_size, device=args.device,
-                     bucket_sizes=buckets)
-    if args.checkpoint_dir:
-        from shape_based_object_detection_torch.cli.common import (
-            restore_checkpoint_variables,
-        )
+    if args.artifact:
+        pred = ArtifactPredictor(args.artifact, device=args.device)
+    else:
+        cfg = config_lib.resolve_config(args.config, args.overrides)
+        weights = None
+        if args.checkpoint_dir:
+            import torch
 
-        pred.module.load_state_dict(restore_checkpoint_variables(
-            pred.module, args.checkpoint_dir, ema=args.ema), strict=True)
+            from shape_based_object_detection_torch.cli.common import (
+                restore_checkpoint_variables,
+            )
+            from shape_based_object_detection_torch.models.factory import build_module
+
+            with torch.device("meta"):  # only its state dict's keys are read
+                module = build_module(cfg.model)
+            weights = restore_checkpoint_variables(module, args.checkpoint_dir, ema=args.ema)
+        pred = Predictor(cfg, weights, batch_size=args.batch_size, device=args.device,
+                         bucket_sizes=buckets, quantize=args.quantize,
+                         activation_scales=args.act_scales or None)
     print("warming up (one batch per bucket)...", flush=True)
     pred.warmup()
     server = DetectionServer(pred, host=args.host, port=args.port,

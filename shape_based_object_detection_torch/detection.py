@@ -4,9 +4,9 @@ normalize -> backbone/FPN/heads -> exact two-stage top-k candidate selection
 -> decode of only the K winners -> class-aware NMS -> fixed-size
 ``Detections`` with a valid mask. Every step runs on the module's device
 and nothing synchronises with the host until the caller reads the result.
-On the card the NMS is the CUDA kernel (``ops/nms_cuda.py``); on the CPU it
-is the plain version (``ops/nms.py``). Soft-NMS is the alternative a
-config may pick.
+The NMS is the op ``sbd::greedy_nms`` (``ops/nms_cuda.py``): the CUDA
+kernel on the card, the plain version (``ops/nms.py``) on the CPU.
+Soft-NMS is the alternative a config may pick.
 
 Test-time augmentation: hflip (one forward on the doubled batch, the two
 candidate sets merged by one NMS) and multi-scale (one detect per scale on
@@ -16,26 +16,30 @@ shared weights, merged by one NMS), as the reference's float tier.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from shape_based_object_detection_torch.config import DataConfig, ModelConfig
 from shape_based_object_detection_torch.ops import boxes as box_ops
 from shape_based_object_detection_torch.ops import nms as nms_lib
+from shape_based_object_detection_torch.ops import nms_cuda
 from shape_based_object_detection_torch.utils import image as image_lib
 from shape_based_object_detection_torch.utils.device import resolve_device
 
-# DetectConfig.nms_backend values -> the greedy NMS routes ("auto" is
-# resolved apart). "pallas", "scan" and "matrix" are the reference's names,
-# so its configs load unchanged. The reference's "matrix" backend is a
+# DetectConfig.nms_backend values -> the greedy NMS routes. "pallas", "scan"
+# and "matrix" are the reference's names, so its configs load unchanged. The reference's "matrix" backend is a
 # round-based formulation of the same greedy NMS for the TPU's matrix unit;
 # here it runs as "auto" does (the kernel on the card is faster, PERF.md).
 # One deliberate difference: a zero-area candidate, whose IoU with itself
 # is 0, is picked again by greedy NMS but only once by the reference's rounds.
-_NMS_BACKENDS = {"cuda": "cuda", "pallas": "cuda", "plain": "plain",
-                 "scan": "plain"}
+_NMS_BACKENDS = {
+    "auto": nms_cuda.batched_class_aware_nms_op, "matrix": nms_cuda.batched_class_aware_nms_op,
+    "cuda": nms_cuda.batched_class_aware_nms_cuda, "pallas": nms_cuda.batched_class_aware_nms_cuda,
+    "plain": nms_lib.batched_class_aware_nms, "scan": nms_lib.batched_class_aware_nms}
 
 
 def select_candidates(
@@ -74,13 +78,6 @@ def select_candidates(
     return cand_boxes, cand_scores, cand_classes, cand_valid
 
 
-def unported_tier(what: str) -> NotImplementedError:
-    """The error for a serving tier of the next slice of the port."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules still to port, item 6: "
-        "the int8 serving tiers and the exported artifact)")
-
-
 def run_nms(
     cand_boxes: torch.Tensor,  # (B, N, 4) xyxy in [0, 1]
     cand_scores: torch.Tensor,  # (B, N)
@@ -92,11 +89,11 @@ def run_nms(
     """Class-aware NMS over a candidate set, which need not be sorted: every
     backend selects by argmax. ``cfg.detect.soft_nms_sigma > 0`` runs
     Soft-NMS (``ops/nms.py``) whatever the backend. Otherwise ``backend``
-    (default ``cfg.detect.nms_backend``): "auto" runs the CUDA kernel for
-    CUDA tensors and the plain version for CPU tensors; "cuda" (or the
-    reference's "pallas") always the kernel, which raises on CPU tensors;
-    "plain" (or "scan") always the plain version; the reference's "matrix"
-    as "auto"."""
+    (default ``cfg.detect.nms_backend``): "auto" runs the op
+    ``sbd::greedy_nms``, which is the CUDA kernel for CUDA tensors and the
+    plain version for CPU tensors; "cuda" (or the reference's "pallas")
+    always the kernel, which raises on CPU tensors; "plain" (or "scan")
+    always the plain version; the reference's "matrix" as "auto"."""
     det = cfg.detect
     if det.soft_nms_sigma > 0:
         return nms_lib.batched_class_aware_soft_nms(
@@ -104,19 +101,10 @@ def run_nms(
             sigma=det.soft_nms_sigma, score_threshold=det.score_threshold,
             max_detections=det.max_detections)
     backend = backend or det.nms_backend
-    if backend in ("auto", "matrix"):
-        backend = "cuda" if cand_boxes.is_cuda else "plain"
-    args = (cand_boxes, cand_scores, cand_classes, cand_valid,
-            det.nms_iou_threshold, det.max_detections)
     if backend not in _NMS_BACKENDS:
         raise ValueError(f"unknown nms_backend {backend!r}")
-    if _NMS_BACKENDS[backend] == "cuda":
-        from shape_based_object_detection_torch.ops.nms_cuda import (
-            batched_class_aware_nms_cuda,
-        )
-
-        return batched_class_aware_nms_cuda(*args)
-    return nms_lib.batched_class_aware_nms(*args)
+    return _NMS_BACKENDS[backend](cand_boxes, cand_scores, cand_classes, cand_valid,
+                                  det.nms_iou_threshold, det.max_detections)
 
 
 def postprocess(cls_logits, box_offsets, anchors_cxcywh,
@@ -158,57 +146,88 @@ def postprocess_tta_hflip(cls_logits, box_offsets, anchors_cxcywh,
                                          anchors_cxcywh, cfg), cfg)
 
 
+class DetectProgram(nn.Module):
+    """detect as one module: normalize -> backbone/heads -> postprocess
+    (``postprocess_tta_hflip`` on the doubled batch ``[x, hflip(x)]`` when
+    ``cfg.detect.tta_hflip``). Takes (B, S, S, 3) uint8, or float in [0,
+    1], on the module's device; returns ``(boxes, scores, labels, valid)``.
+    ``make_detect_fn`` runs it eagerly and ``export.export_detect`` traces
+    it: the live and the exported program are one."""
+
+    def __init__(self, module: nn.Module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
+                 data_cfg: DataConfig | None = None):
+        super().__init__()
+        self.module = module
+        self.register_buffer("anchors", anchors_cxcywh)
+        self.cfg = cfg
+        self.mean = tuple(data_cfg.mean if data_cfg else image_lib.IMAGENET_MEAN)
+        self.std = tuple(data_cfg.std if data_cfg else image_lib.IMAGENET_STD)
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = image_lib.normalize_images(images, self.mean, self.std)
+        tta = self.cfg.detect.tta_hflip
+        if tta:  # one doubled-batch forward; W is dim 2 of NHWC
+            x = torch.cat([x, x.flip(2)], 0)
+        cls_logits, box_offsets = self.module(x.permute(0, 3, 1, 2))
+        post = postprocess_tta_hflip if tta else postprocess
+        return tuple(post(cls_logits, box_offsets, self.anchors, self.cfg))
+
+
+def module_device(module: nn.Module) -> torch.device:
+    """The device of a module's first parameter or buffer."""
+    return next(itertools.chain(module.parameters(), module.buffers())).device
+
+
 def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
                    data_cfg: DataConfig | None = None, device=None):
-    """Returns ``detect(images) -> Detections``.
+    """Returns ``detect(images) -> Detections``, which runs ``DetectProgram``.
 
     ``images``: (B, H, W, 3) uint8 (numpy or tensor) with H = W =
     ``cfg.image_size``, or float already in [0, 1]; normalization runs on
     the device. ``module`` and ``anchors_cxcywh`` come from ``build_model``
-    on the same ``device`` (default: the card). With
-    ``cfg.detect.tta_hflip`` one forward runs on the doubled batch ``[x,
-    hflip(x)]`` and ``postprocess_tta_hflip`` merges the halves.
+    (or ``quantize.quantize_module``) on the same ``device`` (default: the
+    card). With ``cfg.detect.tta_hflip`` one forward runs on the doubled
+    batch ``[x, hflip(x)]`` and ``postprocess_tta_hflip`` merges the halves.
     """
     dev = resolve_device(device)
-    param = next(module.parameters())
-    if param.device != dev or anchors_cxcywh.device != dev:
+    if module_device(module) != dev or anchors_cxcywh.device != dev:
         raise ValueError(
             f"detect on {dev} needs the module and anchors there; they are on "
-            f"{param.device} and {anchors_cxcywh.device}")
-    mean = data_cfg.mean if data_cfg else image_lib.IMAGENET_MEAN
-    std = data_cfg.std if data_cfg else image_lib.IMAGENET_STD
-    tta = cfg.detect.tta_hflip
-    post = postprocess_tta_hflip if tta else postprocess
+            f"{module_device(module)} and {anchors_cxcywh.device}")
+    program = DetectProgram(module, anchors_cxcywh, cfg, data_cfg)
 
     @torch.inference_mode()
     def detect(images) -> nms_lib.Detections:
-        x = torch.as_tensor(images).to(dev, non_blocking=True)
-        x = image_lib.normalize_images(x, mean, std)
-        if tta:  # one doubled-batch forward; W is dim 2 of NHWC
-            x = torch.cat([x, x.flip(2)], 0)
-        cls_logits, box_offsets = module(x.permute(0, 3, 1, 2))
-        return post(cls_logits, box_offsets, anchors_cxcywh, cfg)
+        return nms_lib.Detections(*program(torch.as_tensor(images).to(dev, non_blocking=True)))
 
     return detect
 
 
-def _check_float_tier(quantize, activation_scales) -> None:
-    if quantize or activation_scales is not None:
-        raise unported_tier("multi-scale detection in an int8 tier")
-
-
 def _build_scale_programs(module, model_cfg: ModelConfig, scales,
-                          data_cfg: DataConfig | None, device):
+                          data_cfg: DataConfig | None, device, quantize="",
+                          activation_scales=None):
     """One detect per scale, all on ``module``'s weights, and the cross-scale
     merge. Each scale's module is built on the meta device first (shapes
     only, no arithmetic): a scale whose ``state_dict`` shapes differ from
     ``module``'s (SSD's extras and heads depend on the image size) raises,
-    naming it. Another scale's module shares ``module``'s tensors.
+    naming it. Another scale's module shares the base module's tensors.
+
+    ``quantize`` ("", "weights", "full") serves every scale in that int8
+    tier from one quantized copy of ``module``: its int8 tensors are shared
+    as the float ones are. ``activation_scales`` (dict or JSON path) makes
+    "full" static; the scales are per tensor, with no spatial extent, so
+    scales calibrated at the base size apply at every scale.
     Returns ``([(detect, scale), ...], merge)``."""
+    from shape_based_object_detection_torch import quantize as quantize_lib
     from shape_based_object_detection_torch.models.factory import build_module
     from shape_based_object_detection_torch.ops import anchors as anchor_lib
 
     dev = resolve_device(device)
+    quantize = quantize_lib.normalize_quantize_mode(quantize)
+    if activation_scales is not None and quantize != "full":
+        raise ValueError("activation_scales only applies to quantize mode 'full'")
+    if isinstance(activation_scales, str):
+        activation_scales = quantize_lib.load_activation_scales(activation_scales)
     weights = module.state_dict()
     want = {k: tuple(v.shape) for k, v in weights.items()}
     modules = []
@@ -227,11 +246,17 @@ def _build_scale_programs(module, model_cfg: ModelConfig, scales,
         if {k: tuple(v.shape) for k, v in smodule.state_dict().items()} != want:
             raise ValueError(err)
         modules.append((scfg, smodule))
+    base = module
+    if quantize:
+        base = quantize_lib.quantize_module(module, quantize, activation_scales, device=dev)
+        weights = base.state_dict()
     per_scale = []
     for scfg, smodule in modules:
         if scfg.image_size == model_cfg.image_size:
-            smodule = module
+            smodule = base
         else:  # the same tensors, in the module built for this scale
+            if quantize:
+                smodule = quantize_lib._quantized_copy(smodule, quantize, activation_scales)
             smodule.load_state_dict(weights, strict=True, assign=True)
             smodule.eval()
         anchors = anchor_lib.anchors_for_model(scfg).to(dev)
@@ -266,20 +291,21 @@ class MultiScaleBatchDetector:
     base keeps its content fraction at every scale. For a real dataset
     the non-base scales see base -> scale pixels (two resamples), not
     original -> scale. Composes with hflip TTA through
-    ``model_cfg.detect.tta_hflip``. Only the float tier is ported:
-    ``quantize`` and ``activation_scales`` raise.
+    ``model_cfg.detect.tta_hflip``, and with the int8 tiers through
+    ``quantize`` / ``activation_scales`` (one quantized copy serves every
+    scale).
     """
 
     def __init__(self, model_cfg: ModelConfig, module, scales,
                  data_cfg: DataConfig | None = None, device=None,
                  quantize: bool | str = "", activation_scales=None):
-        _check_float_tier(quantize, activation_scales)
         if not scales:
             raise ValueError("scales must name at least one image size")
         self.scales = tuple(int(s) for s in scales)
         self.device = resolve_device(device)
         per_scale, self._merge = _build_scale_programs(
-            module, model_cfg, self.scales, data_cfg, self.device)
+            module, model_cfg, self.scales, data_cfg, self.device, quantize,
+            activation_scales)
         base = model_cfg.image_size
         self._fns = [fn if s == base else self._with_resize(fn, s)
                      for fn, s in per_scale]
@@ -316,22 +342,22 @@ class MultiScaleDetector:
     and runs its own detect on the shared weights; the per-scale detections
     are in normalized coordinates and one class-aware NMS over their union
     merges them. Every requested scale is checked against the weights as
-    ``MultiScaleBatchDetector`` does. Only the float tier is ported:
-    ``quantize`` and ``activation_scales`` raise.
+    ``MultiScaleBatchDetector`` does; ``quantize`` / ``activation_scales``
+    select an int8 tier, as there.
     """
 
     def __init__(self, model_cfg: ModelConfig, module, scales,
                  data_cfg: DataConfig | None = None, device=None,
                  letterbox: bool = False, quantize: bool | str = "",
                  activation_scales=None):
-        _check_float_tier(quantize, activation_scales)
         if not scales:
             raise ValueError("scales must name at least one image size")
         self.scales = tuple(int(s) for s in scales)
         self.letterbox = letterbox
         self.device = resolve_device(device)
         self._per_scale, self._merge = _build_scale_programs(
-            module, model_cfg, self.scales, data_cfg, self.device)
+            module, model_cfg, self.scales, data_cfg, self.device, quantize,
+            activation_scales)
 
     def __call__(self, image_np: np.ndarray) -> Tuple[np.ndarray, ...]:
         """(H, W, 3) uint8 image -> (boxes_px, scores, labels) in original

@@ -9,16 +9,23 @@ a CPU tensor raises (the plain version in ``ops/nms.py`` is what runs on the
 CPU, chosen by the caller from the tensors' device). Nothing here falls
 back. The kernel is built at first use (``utils/native.py``); importing this
 module needs neither nvcc nor a card.
+
+Importing it also registers the PyTorch op ``sbd::greedy_nms``, which
+dispatches by device: the kernel for CUDA tensors, ``ops.nms.greedy_nms``
+for the others. A traced program (``torch.export``, ``export.py``) records
+the op as one node, so the program runs the kernel wherever it runs on the
+card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from shape_based_object_detection_torch.ops.nms import (
-    Detections, NMSResult, class_offset_boxes, gather_detections,
+    Detections, NMSResult, class_offset_boxes, gather_detections, greedy_nms,
 )
 from shape_based_object_detection_torch.utils import native
 
@@ -122,4 +129,36 @@ def batched_class_aware_nms_cuda(
     launch, then the gather of the kept boxes and classes."""
     res = greedy_nms_cuda(class_offset_boxes(boxes_xyxy, classes), scores,
                           valid, iou_threshold, max_detections)
+    return gather_detections(boxes_xyxy, classes, res)
+
+
+@torch.library.custom_op("sbd::greedy_nms", mutates_args=())
+def greedy_nms_op(boxes_xyxy: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                  iou_threshold: float, max_detections: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``sbd::greedy_nms``: (B, N, 4), (B, N), (B, N) bool -> (indices
+    int32, scores float32, valid bool), each (B, max_detections). This body
+    is the implementation for every device but CUDA: the plain version."""
+    return tuple(greedy_nms(boxes_xyxy, scores, valid, iou_threshold, max_detections))
+
+
+@greedy_nms_op.register_kernel("cuda")
+def _greedy_nms_op_cuda(boxes_xyxy, scores, valid, iou_threshold, max_detections):
+    return tuple(greedy_nms_cuda(boxes_xyxy, scores, valid, iou_threshold, max_detections))
+
+
+@greedy_nms_op.register_fake
+def _greedy_nms_op_fake(boxes_xyxy, scores, valid, iou_threshold, max_detections):
+    shape = (boxes_xyxy.shape[0], max_detections)
+    return (boxes_xyxy.new_empty(shape, dtype=torch.int32),
+            boxes_xyxy.new_empty(shape, dtype=torch.float32),
+            boxes_xyxy.new_empty(shape, dtype=torch.bool))
+
+
+def batched_class_aware_nms_op(boxes_xyxy, scores, classes, valid, iou_threshold: float,
+                               max_detections: int) -> Detections:
+    """Class-aware NMS through ``sbd::greedy_nms``: the kernel on the card,
+    the plain version elsewhere."""
+    res = NMSResult(*torch.ops.sbd.greedy_nms(class_offset_boxes(boxes_xyxy, classes),
+                                              scores, valid, iou_threshold, max_detections))
     return gather_detections(boxes_xyxy, classes, res)

@@ -1,5 +1,4 @@
-"""Batched inference serving (port of the JAX package's ``serving.py``,
-float tier).
+"""Batched inference serving (port of the JAX package's ``serving.py``).
 
 ``Predictor.predict`` splits a request into batches, resizes and pads each on
 the host to its bucket (the smallest batch size of ``bucket_sizes`` that
@@ -7,6 +6,9 @@ holds it), runs detect on the device and unpads the results. The next chunk
 is prepared and launched before the previous one is read back, so host work
 overlaps the device (PyTorch launches asynchronously on CUDA);
 ``submit``/``poll`` expose the same overlap to a caller (the HTTP server).
+``Predictor`` serves a model in the float or an int8 tier (``quantize.py``);
+``ArtifactPredictor`` serves an exported ``.sbdx`` program (``export.py``)
+with the same surface and no model code.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ import numpy as np
 import torch
 
 from shape_based_object_detection_torch.config import ExperimentConfig
-from shape_based_object_detection_torch.detection import make_detect_fn, unported_tier
 from shape_based_object_detection_torch.models.factory import build_model
 from shape_based_object_detection_torch.ops.boxes import boxes_to_original
+from shape_based_object_detection_torch.quantize import make_serving_detect
 from shape_based_object_detection_torch.utils.device import resolve_device
 from shape_based_object_detection_torch.utils.image import (
     effective_decode_backend, letterbox_image_host, load_resized_image_host,
@@ -103,44 +105,12 @@ def default_bucket_sizes(batch_size: int) -> list:
     return [b for b in (1, 2, 4, 8, 16, 32, 64) if b < batch_size] + [batch_size]
 
 
-class Predictor:
-    """detect() as a service: fixed or bucketed batch, padded, launches
-    overlapped with host work. Runs on the card unless ``device="cpu"``."""
-
-    def __init__(self, cfg: ExperimentConfig, state_dict=None,
-                 batch_size: int = 8, min_score: float = 0.0,
-                 quantize: bool | str = False, device=None,
-                 generator: torch.Generator | None = None,
-                 bucket_sizes=None):
-        """``state_dict``: weights to load (strict); None keeps the fresh
-        initialisation drawn from ``generator``. ``bucket_sizes`` (e.g. (1,
-        4, 16), ending at ``batch_size``): a request chunk pads only to the
-        smallest bucket that holds it, so small requests skip most of the
-        padded batch's upload and compute; None is ``[batch_size]``, every
-        chunk padded to ``batch_size``. Only the float tier is ported: any ``quantize``
-        other than False raises."""
-        if quantize is not False:
-            raise unported_tier("quantized serving")
-        self.cfg = cfg
-        self.batch_size = batch_size
-        bucket_sizes = sorted(set(int(b) for b in (bucket_sizes or [batch_size])))
-        if bucket_sizes[-1] != batch_size:
-            raise ValueError(f"bucket_sizes {bucket_sizes} must end at "
-                             f"batch_size={batch_size}")
-        self.bucket_sizes = bucket_sizes
-        self.min_score = min_score
-        self.size = cfg.model.image_size
-        self.letterbox = cfg.data.letterbox
-        self.device = resolve_device(device)
-        # resolved once: "native" raises here, not at the first request,
-        # where the decoder does not build
-        self.decode_backend = effective_decode_backend(cfg.data.decode_backend)
-        self.module, self.anchors = build_model(cfg.model, self.device, generator)
-        if state_dict is not None:
-            self.module.load_state_dict(state_dict, strict=True)
-        self._detect = make_detect_fn(self.module, self.anchors, cfg.model,
-                                      cfg.data, self.device)
-        self._pending: Deque[Tuple] = collections.deque()  # in flight, FIFO
+class _BatchedServing:
+    """The serving surface that ``Predictor`` and ``ArtifactPredictor``
+    share: buckets, upload, ``submit``/``poll``, ``predict``, ``warmup``.
+    A subclass sets ``batch_size``, ``bucket_sizes``, ``min_score``,
+    ``size``, ``letterbox``, ``device``, ``decode_backend`` and
+    ``_detect`` (images on the device -> Detections)."""
 
     def _upload(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch)
@@ -199,3 +169,67 @@ class Predictor:
             out.extend(unpack_detections(*pending, self.min_score,
                                          self.letterbox))
         return out
+
+
+class Predictor(_BatchedServing):
+    """detect() as a service: fixed or bucketed batch, padded, launches
+    overlapped with host work. Runs on the card unless ``device="cpu"``."""
+
+    def __init__(self, cfg: ExperimentConfig, state_dict=None,
+                 batch_size: int = 8, min_score: float = 0.0,
+                 quantize: bool | str = False, device=None,
+                 generator: torch.Generator | None = None,
+                 bucket_sizes=None, activation_scales=None):
+        """``state_dict``: weights to load (strict); None keeps the fresh
+        initialisation drawn from ``generator``. ``quantize``: False (the
+        float tier), True or "weights" (int8 weights dequantized in each
+        convolution), or "full" (the s8×s8 → s32 tier, with per-image
+        activation scales, or with ``activation_scales``, a calibration
+        dict or the path of its JSON, static ones). ``module`` is the model
+        that serves: the quantized copy in an int8 tier. ``bucket_sizes``
+        (e.g. (1, 4, 16), ending at ``batch_size``): a request chunk pads
+        only to the smallest bucket that holds it, so small requests skip
+        most of the padded batch's upload and compute; None is
+        ``[batch_size]``, every chunk padded to ``batch_size``."""
+        self.cfg = cfg
+        self.batch_size = batch_size
+        bucket_sizes = sorted(set(int(b) for b in (bucket_sizes or [batch_size])))
+        if bucket_sizes[-1] != batch_size:
+            raise ValueError(f"bucket_sizes {bucket_sizes} must end at "
+                             f"batch_size={batch_size}")
+        self.bucket_sizes = bucket_sizes
+        self.min_score = min_score
+        self.size = cfg.model.image_size
+        self.letterbox = cfg.data.letterbox
+        self.device = resolve_device(device)
+        # resolved once: "native" raises here, not at the first request,
+        # where the decoder does not build
+        self.decode_backend = effective_decode_backend(cfg.data.decode_backend)
+        module, self.anchors = build_model(cfg.model, self.device, generator)
+        if state_dict is not None:
+            module.load_state_dict(state_dict, strict=True)
+        self._detect, self.module = make_serving_detect(
+            module, self.anchors, cfg.model, cfg.data, quantize, self.device,
+            activation_scales)
+        self._pending: Deque[Tuple] = collections.deque()  # in flight, FIFO
+
+
+class ArtifactPredictor(_BatchedServing):
+    """The Predictor surface over an exported ``.sbdx`` artifact: the same
+    host-side prepare, upload and unpack, no model-building code. The
+    artifact has one batch shape, so it has one bucket. Runs on the card
+    unless ``device="cpu"``; JPEGs decode as ``decode_backend="auto"``."""
+
+    def __init__(self, artifact_path: str, min_score: float = 0.0, device=None):
+        from shape_based_object_detection_torch.export import load_artifact
+
+        self._detect = load_artifact(artifact_path, device)
+        header = self._detect.header
+        self.device = self._detect.device
+        self.min_score = min_score
+        self.size = header["image_size"]
+        self.batch_size = header["batch_size"]
+        self.bucket_sizes = [self.batch_size]
+        self.letterbox = bool(header.get("letterbox", False))
+        self.decode_backend = effective_decode_backend("auto")
+        self._pending: Deque[Tuple] = collections.deque()  # in flight, FIFO

@@ -24,9 +24,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _tracing() -> bool:
+    """Whether a tracer (``torch.export``, ``torch.compile``, any fake-tensor
+    mode) is running: a tensor made now is the tracer's, not a real one."""
+    return (torch.compiler.is_compiling()
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None)
+
+
 @functools.lru_cache(maxsize=64)
+def _cached_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A small constant tensor on ``device``, made once per process: a copy
     from the host to the card waits for the stream it is made on, so a hot
-    path takes its constants from here. Callers must not write to it."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    path takes its constants from here. Callers must not write to it.
+    While a tracer runs it is made anew and not cached: a traced tensor
+    kept in the cache would reach every eager call after the trace."""
+    if _tracing():
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_constant(values, dtype, device)

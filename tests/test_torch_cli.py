@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from shape_based_object_detection_torch.cli import eval_cli, train_cli
-from tests.torch_parity import one_torch_thread  # noqa: F401
+from tests.torch_parity import one_torch_thread, tiny_int8_files  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device", "cpu", "--workers", "0"]
@@ -163,11 +163,35 @@ def test_train_cli_unported_options_raise(tmp_path, args):
         _train(tmp_path / "c", *args)
 
 
+@pytest.fixture(scope="module")
+def int8_files(tmp_path_factory):
+    """Scales calibrated on the tiny RetinaNet and its full-static artifact."""
+    return tiny_int8_files(str(tmp_path_factory.mktemp("int8")))
+
+
 @pytest.mark.parametrize("args", [["--quantize"], ["--quantize", "full"],
                                   ["--act-scales", "x.json"], ["--artifact", "m.sbdx"]])
-def test_eval_cli_unported_options_raise(args):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _eval("--config", "tiny_retinanet", "--max-batches", "1", *args)
+def test_eval_cli_unported_options_raise(args, int8_files):
+    """The int8 tiers' and the artifact's flags (once unported, now
+    ported) run: ``--act-scales`` with the ``--quantize full`` it needs and
+    a scales file, ``--artifact`` with an artifact of the config; each
+    prints its metric. The reference's conflict checks raise."""
+    scales, artifact = int8_files
+    files = {"x.json": scales, "m.sbdx": artifact}
+    argv = [files.get(a, a) for a in args]
+    if "--act-scales" in args:
+        argv = ["--quantize", "full", *argv]
+    out = _eval("--config", "tiny_retinanet", "--max-batches", "1", "--protocol", "voc",
+                "--set", ZERO_THRESHOLD, *argv)
+    assert 0.0 <= json.loads(out)["mAP"] <= 1.0
+    if "--artifact" in args:
+        with pytest.raises(SystemExit, match="frozen program: --quantize"):
+            _eval("--config", "tiny_retinanet", *argv, "--quantize")
+        with pytest.raises(SystemExit, match="artifact/config mismatch"):
+            _eval("--config", "tiny_ssd", *argv)
+    if "--act-scales" in args:
+        with pytest.raises(SystemExit, match="requires --quantize full"):
+            _eval("--config", "tiny_retinanet", *argv[2:])
 
 
 def _in_process(ckpt, max_batches):

@@ -506,3 +506,94 @@ def test_train_cli_on_the_card(tmp_path, capsys):
     assert matching_cuda.launches - k2 == 4 and nms_cuda.launches - k1 == 2
     loss = float(out.split("loss=")[1].split()[0])
     assert np.isfinite(loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(nms_edge_cases()))
+def test_greedy_nms_op_runs_the_kernel(name):
+    """sbd::greedy_nms on CUDA tensors is the kernel: one launch, equal to
+    the plain version."""
+    nms_cuda = _cuda()
+    boxes, scores, valid, t, m = (torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                                  else a for a in nms_edge_cases()[name])
+    before = nms_cuda.launches
+    got = torch.ops.sbd.greedy_nms(boxes, scores, valid, t, m)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches - before == 1
+    want = nms.greedy_nms(boxes, scores, valid, t, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,p,d,c,o,b,h", [
+    (3, 1, 1, 1, 64, 64, 2, 33), (3, 2, 1, 1, 128, 256, 1, 17), (1, 1, 0, 1, 256, 512, 1, 4),
+    (7, 2, 3, 1, 3, 64, 1, 64), (3, 1, 6, 6, 64, 128, 1, 19), (1, 2, 0, 1, 64, 256, 2, 16),
+    (3, 1, 1, 1, 20, 12, 1, 3)])
+def test_int8_product_on_the_card_equals_plain(k, s, p, d, c, o, b, h):
+    """The card's int8 product (im2col + torch._int_mm, M, K and N padded)
+    bit-equal to the plain float64 product, at extreme operands too; one
+    _int_mm per call."""
+    _cuda()
+    from shape_based_object_detection_torch import quantize
+
+    rng = np.random.default_rng(k * 100 + c)
+    for lo, hi in ((-127, 128), (127, 128)):
+        xq = torch.from_numpy(rng.integers(lo, hi, (b, h, h + 2, c)).astype(np.int8)).cuda()
+        wq = torch.from_numpy(rng.integers(lo, hi, (o, k, k, c)).astype(np.int8)).cuda()
+        before = quantize.launches
+        got = torch.ops.sbd.int8_conv2d(xq, wq, [s, s], [p, p], [d, d])
+        assert quantize.launches - before == 1
+        with torch.backends.cudnn.flags(enabled=False):
+            want = quantize.int8_conv2d_plain(xq, wq, [s, s], [p, p], [d, d])
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,static", [("weights", False), ("full", False), ("full", True)])
+def test_int8_tiers_on_the_card(mode, static, tmp_path):
+    """The tiny RetinaNet's int8 tiers on the card: every int8 product's
+    convolution (the full tier's) equal to the CPU's on the card's input,
+    detect once through K1; an artifact exported on the CPU runs on the
+    card through K1 and equals the card's live detect of the same tier."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch import config, export, quantize
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    cfg = config.resolve_config("tiny_retinanet", ["model.detect.score_threshold=0.0"])
+    images = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    cpu, _ = build_model(cfg.model, device="cpu")
+    scales = quantize.calibrate_activation_scales(cpu, [images]) if static else None
+    gpu, anchors = build_model(cfg.model, device="cuda")
+    detect, qg = quantize.make_serving_detect(gpu, anchors, cfg.model, cfg.data, mode,
+                                              "cuda", scales)
+    qc = quantize.quantize_module(cpu, mode, scales, device="cpu")
+    cpu_mods = dict(qc.named_modules())
+    seen = {}
+    hooks = [m.register_forward_hook(  # int8 products; float convs sum in other orders
+        lambda mod, a, out, n=n: seen.setdefault(n, (a[0], out)) and None)
+        for n, m in qg.named_modules()
+        if isinstance(m, quantize.Int8Conv2d) and m.mode != "weights"]
+    before = nms_cuda.launches
+    live = detect(images)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert nms_cuda.launches - before == 1 and bool(seen) == (mode == "full")
+    with torch.inference_mode():
+        for n, (x, y) in seen.items():
+            assert torch.equal(cpu_mods[n](x.cpu()), y.cpu()), n
+    blob = export.export_from_config(cfg, batch_size=2, quantize=mode != "",
+                                     int8_activations=mode == "full",
+                                     activation_scales=scales, device="cpu")
+    loaded = export.load_detect(blob)
+    assert loaded.device.type == "cuda"
+    before = nms_cuda.launches
+    det = loaded(images)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches - before == 1
+    for a, b in zip(det, live):
+        assert a.device.type == "cuda"
+        if a.dtype.is_floating_point:
+            assert torch.allclose(a, b, rtol=0, atol=1e-5)
+        else:
+            assert torch.equal(a, b)

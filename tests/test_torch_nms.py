@@ -218,3 +218,29 @@ def test_sort_mask_sweep_random(b, n, m, seed):
     shifted = np.asarray(torch_nms.class_offset_boxes(torch.from_numpy(boxes),
                                                       torch.from_numpy(cls)))
     _assert_model_equals_references(shifted, scores, valid, 0.5, m)
+
+
+@pytest.mark.parametrize("name", list(nms_edge_cases()))
+def test_greedy_nms_op_equals_both_routes(name):
+    """The op sbd::greedy_nms on CPU tensors is the plain version, bit for
+    bit, on the kernel's edge cases; the "cuda" route (the kernel) refuses
+    CPU tensors; run_nms's "auto" goes through the op."""
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.detection import run_nms
+    from shape_based_object_detection_torch.ops import nms_cuda
+
+    boxes, scores, valid, t, m = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                                  for a in nms_edge_cases()[name])
+    got = torch.ops.sbd.greedy_nms(boxes, scores, valid, t, m)
+    want = torch_nms.greedy_nms(boxes, scores, valid, t, m)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [a.dtype for a in got] == [torch.int32, torch.float32, torch.bool]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms_cuda.greedy_nms_cuda(boxes, scores, valid, t, m)
+    cfg = config.tiny_test_model("retinanet")
+    cfg = config.dataclasses.replace(cfg, detect=config.dataclasses.replace(
+        cfg.detect, nms_iou_threshold=t, max_detections=m))
+    classes = torch.zeros(scores.shape, dtype=torch.int32)
+    auto = run_nms(boxes, scores, classes, valid, cfg, backend="auto")
+    plain = run_nms(boxes, scores, classes, valid, cfg, backend="plain")
+    assert all(torch.equal(a, b) for a, b in zip(auto, plain))

@@ -3,8 +3,8 @@ hflip and multi-scale TTA and ``--save-viz`` against the JAX package's
 ``detect_cli`` on the same weights, ``eval_cli --tta-hflip``/``--tta-scales``
 against the JAX ``eval_cli`` on the fixture trees of
 ``tests/test_torch_cli.py``, ``serve_cli`` in a subprocess (``/healthz``,
-``/detect``, SIGTERM), and the flags of the next slice raising
-``NotImplementedError``."""
+``/detect``, SIGTERM), and the int8 tiers' and the artifact's flags of
+``serve_cli`` and ``detect_cli``."""
 
 import contextlib
 import io
@@ -25,7 +25,9 @@ from tests.test_torch_cli import (
     ZERO_THRESHOLD, _coco_fixture, _detections, _kept_evaluators, _same_ground_truth,
     _voc_fixture,
 )
-from tests.torch_parity import assert_matched, jax_variables, one_torch_thread  # noqa: F401
+from tests.torch_parity import (  # noqa: F401
+    assert_matched, jax_variables, one_torch_thread, tiny_int8_files,
+)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,27 +152,93 @@ def test_eval_cli_rejects_a_scale_that_changes_the_ssd_plan():
         eval_cli.main(["--device", "cpu", "--config", "tiny_retinanet", "--tta-scales", "a,b"])
 
 
+@pytest.fixture(scope="module")
+def int8_files(tmp_path_factory):
+    """Scales calibrated on the tiny RetinaNet and its full-static artifact
+    (batch 2)."""
+    return tiny_int8_files(str(tmp_path_factory.mktemp("int8")))
+
+
+def _png(seed=2, h=80, w=100):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _serve_once(monkeypatch, argv):
+    """serve_cli.main(argv) in this process, its serve_forever replaced by:
+    serve on a thread, answer one /detect, return (serve_cli then closes
+    the server). Returns (the answer, serve_cli's stdout)."""
+    from shape_based_object_detection_torch import server as server_lib
+
+    answers = []
+
+    def once(self):
+        self.start()
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}/detect?min_score=0.0",
+                                     data=_png())
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
+            answers.append(json.loads(r.read()))
+
+    monkeypatch.setattr(server_lib.DetectionServer, "serve_forever", once)
+    out = _stdout(serve_cli.main, argv)
+    return answers[0], out
+
+
 @pytest.mark.parametrize("args", [["--quantize"], ["--quantize", "full"],
                                   ["--act-scales", "s.json"], ["--artifact", "m.sbdx"]])
-def test_serve_cli_unported_options_raise(args):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve_cli.main(["--device", "cpu", "--config", "tiny_retinanet", *args])
+def test_serve_cli_unported_options_raise(args, int8_files, monkeypatch):
+    """The int8 tiers' and the artifact's flags (once unported, now ported)
+    serve: ``--act-scales`` with the ``--quantize full`` it needs and a
+    scales file, ``--artifact`` with an artifact; one /detect answered,
+    the server stopped. An artifact refuses --quantize/--act-scales."""
+    scales, artifact = int8_files
+    files = {"s.json": scales, "m.sbdx": artifact}
+    argv = [files.get(a, a) for a in args]
+    if "--act-scales" in args:
+        argv = ["--quantize", "full", *argv]
+    answer, out = _serve_once(monkeypatch, [
+        "--device", "cpu", "--config", "tiny_retinanet", "--batch-size", "2",
+        "--set", ZERO_THRESHOLD, "--set", "data.decode_backend=pil", *argv])
+    assert answer["detections"] and (answer["width"], answer["height"]) == (100, 80)
+    assert "server stopped" in out
+    buckets = "[2]" if "--artifact" in args else "[1, 2]"
+    assert f"batch buckets={buckets}" in out
+    if "--artifact" in args:
+        with pytest.raises(SystemExit, match="cannot modify an exported"):
+            serve_cli.main(["--device", "cpu", *argv, "--quantize"])
 
 
 @pytest.mark.parametrize("args,error", [
-    (["--quantize"], NotImplementedError),
-    (["--quantize", "--int8-activations"], NotImplementedError),
-    (["--quantize", "--int8-activations", "--act-scales", "s.json"], NotImplementedError),
-    (["--artifact", "m.sbdx"], NotImplementedError),
+    (["--quantize"], None),
+    (["--quantize", "--int8-activations"], None),
+    (["--quantize", "--int8-activations", "--act-scales", "s.json"], None),
+    (["--artifact", "m.sbdx"], None),
     (["--int8-activations"], SystemExit),
     (["--artifact", "m.sbdx", "--tta-hflip"], SystemExit),
     (["--artifact", "m.sbdx", "--tta-scales", "300"], SystemExit),
     (["--artifact", "m.sbdx", "--quantize"], SystemExit)])
-def test_detect_cli_unported_and_conflicting_options(tmp_path, args, error):
-    """The flags of the int8 and artifact tiers raise NotImplementedError;
-    the reference's conflict checks still come first."""
-    with pytest.raises(error):
-        detect_cli.main(["--device", "cpu", "--image", str(tmp_path), *args])
+def test_detect_cli_unported_and_conflicting_options(tmp_path, args, error, int8_files):
+    """The flags of the int8 and artifact tiers (once unported, now
+    ported) detect on the tiny RetinaNet; the reference's conflict checks
+    raise SystemExit before anything is built."""
+    from PIL import Image
+
+    scales, artifact = int8_files
+    argv = [{"s.json": scales, "m.sbdx": artifact}.get(a, a) for a in args]
+    if error is not None:
+        with pytest.raises(error):
+            detect_cli.main(["--device", "cpu", "--image", str(tmp_path), *argv])
+        return
+    Image.open(io.BytesIO(_png(3, 90, 70))).save(tmp_path / "a.png")
+    out = _stdout(detect_cli.main, [
+        "--device", "cpu", "--config", "tiny_retinanet", "--image", str(tmp_path / "a.png"),
+        "--min-score", "0.0", "--set", ZERO_THRESHOLD, *argv])
+    dets = json.loads(out)
+    assert dets and all(0 <= d["box"][0] <= d["box"][2] <= 70 for d in dets)
 
 
 def test_serve_cli_serves_and_stops_on_sigterm(tmp_path):

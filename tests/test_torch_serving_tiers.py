@@ -1,8 +1,8 @@
 """The port's bucketed Predictor, following ``tests/test_serving.py``: the
 bucket ladder equal to the JAX package's, bucketed batches equal to the
 fixed batch, ``submit``/``poll`` as a FIFO with two batches in flight,
-``warmup`` launching one batch per bucket, and the decode backend resolved
-when the Predictor is built."""
+``warmup`` launching one batch per bucket, the decode backend resolved
+when the Predictor is built, and the int8 tiers."""
 
 import numpy as np
 import pytest
@@ -128,6 +128,17 @@ def test_decode_backend_resolved_at_construction(monkeypatch):
 
 
 def test_unported_tiers_raise():
+    """The int8 tiers (once unported, now ported): each quantize value
+    serves through int8 convolutions, bucketed as the float tier; a
+    misspelled mode raises."""
+    from shape_based_object_detection_torch.quantize import Int8Conv2d
+
+    images = _images(1, 3)
     for quantize in ("weights", True, "full"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Predictor(_cfg(), batch_size=1, device="cpu", quantize=quantize)
+        pred = Predictor(_cfg(), batch_size=2, device="cpu", quantize=quantize,
+                         bucket_sizes=(1, 2))
+        out = pred.predict(images)
+        assert len(out) == 3 and all(len(d.scores) > 0 for d in out)
+        assert any(isinstance(m, Int8Conv2d) for m in pred.module.modules())
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        Predictor(_cfg(), batch_size=1, device="cpu", quantize="Full")

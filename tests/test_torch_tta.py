@@ -202,13 +202,19 @@ def test_multiscale_rejects_a_scale_that_changes_the_ssd_plan():
     """SSD's extras and heads depend on the image size: 512 cannot share
     SSD300's weights, and both detectors say so when built."""
     cfg = torch_config.get_config("tiny_ssd")
-    module, _ = build_model(cfg.model, device="cpu")
+    module, anchors = build_model(cfg.model, device="cpu")
     for cls in (det_lib.MultiScaleBatchDetector, det_lib.MultiScaleDetector):
         with pytest.raises(ValueError, match="not scale-agnostic"):
             cls(cfg.model, module, [300, 512], cfg.data, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        det_lib.MultiScaleBatchDetector(cfg.model, module, [300], device="cpu",
-                                        quantize="weights")
+    # the int8 tiers compose (at one scale here): the weight-only detector
+    # equals that tier's detect
+    from shape_based_object_detection_torch.quantize import make_serving_detect
+
+    ms = det_lib.MultiScaleBatchDetector(cfg.model, module, [300], device="cpu",
+                                         quantize="weights")
+    images = np.random.default_rng(9).integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
+    detect, _ = make_serving_detect(module, anchors, cfg.model, cfg.data, "weights", "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(ms(images), detect(images)))
 
 
 @pytest.mark.parametrize("h,w,out", [(512, 512, 640), (512, 512, 384), (128, 128, 128),

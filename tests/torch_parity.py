@@ -148,3 +148,24 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def tiny_int8_files(folder, batch_size: int = 2):
+    """Activation scales calibrated on the tiny RetinaNet (fresh weights from
+    seed 0, score threshold 0) and a full-static int8 artifact of it at
+    ``batch_size``, written to ``folder``: (scales path, artifact path)."""
+    import os
+
+    from shape_based_object_detection_torch import export, quantize
+
+    cfg = torch_config.resolve_config("tiny_retinanet", ["model.detect.score_threshold=0.0"])
+    module, _ = build_model(cfg.model, device="cpu")
+    images = np.random.default_rng(9).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    scales = os.path.join(folder, "scales.json")
+    quantize.save_activation_scales(
+        scales, quantize.calibrate_activation_scales(module, [images], cfg.data))
+    artifact = os.path.join(folder, "model.sbdx")
+    export.save_artifact(export.export_from_config(
+        cfg, batch_size=batch_size, quantize=True, int8_activations=True,
+        activation_scales=scales, device="cpu"), artifact)
+    return scales, artifact
