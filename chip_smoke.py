@@ -127,6 +127,35 @@ The groups after ``base`` drive the training application (``bn``,
      as subprocesses; last, ArtifactPredictor.predict against
      Predictor.predict.
 
+The groups ``data`` and ``dist`` drive the input pipelines and data
+parallelism:
+
+ 26. config #3's input (SSD-512, b32, 512 px, max_boxes 100): build_cache
+     of the 256-image synthetic split (seconds, bytes), CacheLoader's ms per
+     batch, the cache staged on the card (bytes, the on-card gather's device
+     ms beside its bound, every batch bit-equal to CacheLoader's), the
+     thread Loader and GrainLoader at 0, 4 and 8 worker processes on that
+     split and on a VOC folder of 256 JPEGs of 500 x 375 written from a
+     seed (the decode-bound case), and train_cli on config #3 under
+     --loader threads, cache and device (synthetic) and threads and grain
+     (JPEGs): ms per step, the card's idle share, K2 once per step; no
+     loader worker process may outlive its GrainLoader's close();
+ 27. an NCCL group of one rank formed from torchrun's environment: the
+     data-parallel step bit-equal to the plain step (R50-FPN-512 b16 bf16;
+     SSD-512 b32 with train_bn and remat; cuDNN deterministic) with K2 once
+     per step, K2 bit-equal on the rank's augmented rows, the sharded eval
+     step with K1 once per batch and bit-equal on its candidates;
+     train_cli under torch.distributed.run (8 steps, a val eval, a
+     checkpoint, its resume to 12) and eval_cli the same way, its records
+     equal to eval_cli's without a group; two ranks sharing the card over
+     gloo, b2 each, against one process's step on the global b4.
+
+Every process the run starts ends before it does: the script is the child
+subreaper of its descendants (a worker whose parent exits is re-parented to
+it), and after the last phase, or a failed one, it stops multiprocessing's
+fork server, then whatever else still runs (named in its log), then
+multiprocessing's resource tracker, and reaps them all.
+
 Prints its results, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when there is no CUDA device or a phase fails.
@@ -134,6 +163,7 @@ without printing a result when there is no CUDA device or a phase fails.
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve   # one group, no result line
     python3 chip_smoke.py --only int8    # the int8 tiers and the artifact
+    python3 chip_smoke.py --only data,dist   # the loaders, data parallelism
 """
 
 from __future__ import annotations
@@ -181,6 +211,135 @@ def nvidia_smi_line() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr}")
     return proc.stdout.strip().splitlines()[0]
+
+
+PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
+
+
+def adopt_orphans() -> None:
+    """Make this process the child subreaper of everything it starts: a
+    process whose parent exits before it (a worker of multiprocessing's fork
+    server, a rank of a killed torchrun) is re-parented to this one, not to
+    init, so that ``stop_children`` finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def descendants() -> dict:
+    """{pid: command line} of every process below this one that has not
+    exited (zombies are left out), from /proc."""
+    procs = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # it ended meanwhile
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        procs[int(entry)] = (int(ppid), state, cmd or stat[stat.index("("):stat.rindex(")") + 1])
+    out, parents = {}, [os.getpid()]
+    while parents:
+        parent = parents.pop()
+        for pid, (ppid, state, cmd) in procs.items():
+            if ppid == parent:
+                parents.append(pid)
+                if state not in "ZX":
+                    out[pid] = cmd
+    return out
+
+
+def reap() -> None:
+    """Collect the exit status of every child of this process that has
+    ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:  # no child left
+            return
+        if pid == 0:  # children left, none ended
+            return
+
+
+def wait_gone(pids, timeout: float) -> set:
+    """Wait up to ``timeout`` s for ``pids`` to end (reaping this process's
+    children as they do): those still running."""
+    end = time.monotonic() + timeout
+    while True:
+        reap()
+        alive = set(pids) & set(descendants())
+        if not alive or time.monotonic() >= end:
+            return alive
+        time.sleep(0.05)
+
+
+def terminate(pids, timeout: float) -> None:
+    """SIGTERM to ``pids``, SIGKILL to those still running ``timeout`` s
+    later."""
+    import signal
+
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in pids:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        pids = wait_gone(pids, timeout)
+        for pid in pids:
+            log(f"[procs] pid {pid} still runs {timeout:.0f} s after signal {int(sig)}")
+    if pids:
+        raise RuntimeError(f"processes {sorted(pids)} outlived SIGKILL")
+
+
+def loader_workers_left() -> list:
+    """pids of multiprocessing's fork-server children still running: the
+    worker processes of a GrainLoader that is not closed."""
+    from multiprocessing import forkserver
+
+    server = getattr(forkserver._forkserver, "_forkserver_pid", None)
+    return sorted(p for p, c in descendants().items()
+                  if p != server and "multiprocessing.forkserver import main" in c)
+
+
+def stop_children(timeout: float = 10.0) -> None:
+    """Stop and reap every process below this one that still runs. Anything
+    but multiprocessing's fork server and resource tracker (a fork server's
+    worker, a subprocess) is named in the log and stopped by SIGTERM, SIGKILL
+    after ``timeout`` s; the two helpers then end as they do when this
+    process exits: each when the last holder of its pipe (every fork-server
+    child holds the server's, so they go first) closes it."""
+    import gc
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()  # queues of dead DataLoaders free their semaphores first
+    # a DataLoader left open raises from its SIGCHLD handler when its
+    # workers are stopped: the phases are over, so that handler goes
+    signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+    helpers = ((forkserver._forkserver, "_forkserver_pid", "_forkserver_alive_fd"),
+               (resource_tracker._resource_tracker, "_pid", "_fd"))
+    helper_pids = {getattr(h, pid) for h, pid, _ in helpers} - {None}
+    left = {p: c for p, c in descendants().items() if p not in helper_pids}
+    for pid, cmd in left.items():
+        log(f"[procs] still running after the phases: pid {pid}: {cmd[:300]}")
+    terminate(list(left), timeout)
+    for helper, pid, fd in helpers:
+        if getattr(helper, fd, None) is not None:
+            os.close(getattr(helper, fd))
+            setattr(helper, fd, None)
+    if wait_gone(helper_pids, timeout):
+        log("[procs] multiprocessing's helpers did not end when their pipes closed")
+    terminate(list(descendants()), timeout)
+    for helper, pid, _ in helpers:
+        if getattr(helper, pid, None) is not None:
+            setattr(helper, pid, None)  # reaped above
+    reap()
 
 
 def cuda_times_ms(fn, iters: int, warmup: int = 3) -> np.ndarray:
@@ -1568,6 +1727,57 @@ APP_TRAIN = "synthetic://train?n=256&max_objects=8&aspect_std=0.6"
 APP_VAL = "synthetic://val?n=64&max_objects=8&aspect_std=0.6"
 
 
+def cli_loop(torch, train, cli_train, argv, timed, profiled):
+    """train_cli ``argv`` in this process, every step stamped on the host
+    clock and steps ``profiled[0]`` to ``profiled[1] - 1`` (1-based)
+    launched under torch.profiler. Returns (its output, wall s, the median
+    ms between the steps ``timed[0]`` to ``timed[1]``, and the card's busy
+    ms, window ms and idle share over the profiled steps, on the card's
+    own timeline: the host runs up to METRIC_LAG steps ahead). The seconds
+    before the first step and after the last are logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stamps, prof_box = [], {}
+    real = train.make_train_step
+
+    def timed_step_factory(*a, **k):
+        step = real(*a, **k)
+
+        def timed_step(state, batch):
+            i = len(stamps) + 1
+            if i == profiled[0]:
+                prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                prof_box["p"].__enter__()
+            if i == profiled[1]:
+                prof_box["p"].__exit__(None, None, None)
+            stamps.append(time.perf_counter())
+            with torch.profiler.record_function("cli_step"):
+                return step(state, batch)
+
+        return timed_step
+
+    train.make_train_step = timed_step_factory
+    try:
+        t0 = time.perf_counter()
+        text = run_cli(cli_train.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train.make_train_step = real
+    interval = float(np.median(np.diff(stamps[timed[0] - 1:timed[1]]))) * 1e3
+    dev, host = kineto_intervals(torch, prof_box["p"])
+    steps_seen = sum(1 for name, _, _ in host if name == "cli_step")
+    if steps_seen != profiled[1] - profiled[0] or not dev:
+        raise RuntimeError(f"the profiled window holds {steps_seen} steps, {len(dev)} "
+                           "device activities")
+    lo, hi = min(s for _, s, _ in dev), max(e for _, _, e in dev)
+    busy = union_length([(s, e) for _, s, e in dev])
+    log(f"[cli] train_cli took {stamps[0] - t0:.2f} s to its first step and "
+        f"{t0 + wall - stamps[-1]:.2f} s after its last was launched")
+    return text, wall, interval, busy / 1e6, (hi - lo) / 1e6, 1.0 - busy / (hi - lo)
+
+
 def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, workdir):
     """train_cli on config #3 (SSD-512 b32 float32, shape_weight 0.3) on a
     512 px synthetic split: 24 steps, a val eval every 12 on 2 batches. K2
@@ -1575,44 +1785,18 @@ def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, wo
     step (host clock), its idle share on the card (torch.profiler over steps
     17-20 launched under torch.profiler, on the card's own timeline) and the
     Loader's ms per batch."""
-    from torch.profiler import ProfilerActivity, profile
-
     steps, every, val_batches, workers = 24, 12, 2, 8
-    stamps, prof_box = [], {}
-    real = train.make_train_step
-
-    def timed_step_factory(*a, **k):
-        step = real(*a, **k)
-
-        def timed(state, batch):
-            i = len(stamps) + 1
-            if i == 17:
-                prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA])
-                prof_box["p"].__enter__()
-            if i == 21:
-                prof_box["p"].__exit__(None, None, None)
-            stamps.append(time.perf_counter())
-            with torch.profiler.record_function("cli_step"):
-                return step(state, batch)
-
-        return timed
-
     ckpt = os.path.join(workdir, "app_ckpt")
     argv = ["--config", "config3_ssd512_voc_train", "--data-root", APP_TRAIN,
             "--steps", str(steps), "--eval-every", str(every), "--val-root", APP_VAL,
             "--val-batches", str(val_batches), "--log-every", "4", "--workers", str(workers),
             "--checkpoint-dir", ckpt]
-    train.make_train_step = timed_step_factory
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        text = run_cli(cli_train.main, argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        k2, k1 = matching_cuda.launches, nms_cuda.launches
-    finally:
-        train.make_train_step = real
+    reset_counts()
+    # the loop's step interval on the host clock over steps 5-12 (the eval
+    # at step 12 and the profiled steps 17-20 left out)
+    text, wall, interval, busy, window, idle = cli_loop(torch, train, cli_train, argv,
+                                                        (5, 12), (17, 21))
+    k2, k1 = matching_cuda.launches, nms_cuda.launches
     losses = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines()
               if " loss=" in line]
     evals = (steps // every) * val_batches
@@ -1625,25 +1809,13 @@ def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, wo
             and len(maps) == steps // every):
         raise RuntimeError(f"train_cli on config #3 did not finish cleanly: {text[-500:]}")
     saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
-    # the loop's step interval on the host clock over steps 5-12 (the eval
-    # at step 12 and the profiled steps 17-20 left out)
-    interval = float(np.median(np.diff(stamps[4:12]))) * 1e3
-    dev, host = kineto_intervals(torch, prof_box["p"])
-    steps_seen = sum(1 for name, _, _ in host if name == "cli_step")
-    if steps_seen != 4 or not dev:
-        raise RuntimeError(f"the profiled window holds {steps_seen} steps, {len(dev)} "
-                           "device activities")
-    # the card's own timeline: the host runs up to METRIC_LAG steps ahead
-    lo, hi = min(s for _, s, _ in dev), max(e for _, _, e in dev)
-    busy = union_length([(s, e) for _, s, e in dev])
-    idle = 1.0 - busy / (hi - lo)
     log(f"[app] train_cli config #3 (SSD-512 b32 fp32, shape_weight 0.3), {steps} steps, eval "
         f"every {every} on {val_batches} val batches ({nvidia_smi_line()}): wall {wall:.1f} s; "
         f"losses {losses}; K2 launches {k2} (one per step), K1 {k1} (one per eval batch); "
         f"checkpoints {saved}; voc-mAP {maps}")
     log(f"[app] the loop: {interval:.3f} ms per step over steps 5-12 (host clock), "
         f"{32e3 / interval:.1f} images/s; while steps 17-20 were launched under "
-        f"torch.profiler the card was busy {busy / 1e6:.3f} ms of the {(hi - lo) / 1e6:.3f} "
+        f"torch.profiler the card was busy {busy:.3f} ms of the {window:.3f} "
         f"ms from its first activity to its last: idle share {idle:.3f}")
 
     # the host Loader alone on the same split, with the same threads
@@ -1664,8 +1836,8 @@ def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, wo
     log(f"[app] host Loader, b32 of the 512 px synthetic split, {workers} threads: "
         f"{spread(np.array(per))} per batch (host clock)")
     return ckpt, k1, k2, {"app_step_interval_ms": interval, "app_images_per_s": 32e3 / interval,
-                          "app_device_busy_ms": busy / 1e6,
-                          "app_device_window_ms": (hi - lo) / 1e6, "app_idle_share": idle,
+                          "app_device_busy_ms": busy,
+                          "app_device_window_ms": window, "app_idle_share": idle,
                           "app_wall_s": wall, "app_loader_batch_ms": float(np.median(per))}
 
 
@@ -3121,7 +3293,541 @@ def phase_int8(torch, config, serving, detection, build_model, nms_cuda, reset_c
     return out, k1
 
 
-PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8")
+# ---------------------------------------------------------------------------
+# The input pipelines (group "data") and data parallelism (group "dist")
+# ---------------------------------------------------------------------------
+
+VOC_IMAGES = 256  # JPEGs of 500 x 375, VOC's usual size
+
+
+def write_voc_folder(root, n, seed):
+    """A VOC-layout folder (JPEGImages, Annotations, ImageSets/Main/train.txt)
+    of ``n`` JPEGs of 500 x 375 with 1-6 objects each, made from ``seed``
+    (smooth content, so each JPEG is of a photograph's size)."""
+    from PIL import Image
+
+    from shape_based_object_detection_torch.data.voc import VOC_CLASSES
+
+    rng = np.random.default_rng(seed)
+    for d in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names, nbytes = [], 0
+    for i in range(n):
+        name = f"{i:06d}"
+        small = rng.integers(0, 256, (30, 40, 3), dtype=np.uint8)
+        path = os.path.join(root, "JPEGImages", f"{name}.jpg")
+        Image.fromarray(small).resize((500, 375), Image.BICUBIC).save(path, quality=90)
+        nbytes += os.path.getsize(path)
+        objs = []
+        for _ in range(int(rng.integers(1, 7))):
+            x0, y0 = int(rng.integers(0, 400)), int(rng.integers(0, 300))
+            x1, y1 = x0 + int(rng.integers(20, 500 - x0)), y0 + int(rng.integers(20, 375 - y0))
+            cls = VOC_CLASSES[int(rng.integers(0, len(VOC_CLASSES)))]
+            objs.append(f"<object><name>{cls}</name><difficult>0</difficult><bndbox>"
+                        f"<xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax>"
+                        "</bndbox></object>")
+        with open(os.path.join(root, "Annotations", f"{name}.xml"), "w") as f:
+            f.write("<annotation><size><width>500</width><height>375</height></size>"
+                    + "".join(objs) + "</annotation>")
+        names.append(name)
+    with open(os.path.join(root, "ImageSets", "Main", "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return nbytes
+
+
+def loader_rate(make, batches=16, drain=16):
+    """A loader's steady supply on the host clock: (seconds to its first
+    batch, ms per batch over ``batches`` batches taken after ``drain`` more
+    (what worker processes prefetch while they start), seconds to close
+    it). Epochs follow one another."""
+    import itertools
+
+    t = time.perf_counter()
+    loader = make()
+    it = itertools.chain.from_iterable(loader.batches(e) for e in itertools.count())
+    next(it)
+    start = time.perf_counter() - t
+    for _ in range(drain):
+        next(it)
+    per = []
+    for _ in range(batches):
+        t = time.perf_counter()
+        next(it)
+        per.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    loader.close()
+    return start, np.array(per), time.perf_counter() - t
+
+
+def host_loaders(torch, cfg, ds, name, workers_list):
+    """The thread Loader (8 threads) and GrainLoader at ``workers_list``
+    on ``ds`` at b32: ms per batch."""
+    from shape_based_object_detection_torch.data.grain_pipeline import GrainLoader
+    from shape_based_object_detection_torch.data.pipeline import Loader
+
+    out = {}
+    g = cfg.data.max_boxes
+    start, per, _ = loader_rate(lambda: Loader(ds, 32, g, seed=1, workers=8), drain=0)
+    out[f"{name}_threads8_batch_ms"] = float(np.mean(per))
+    log(f"[data] {name}: thread Loader (8 threads) b32 {spread(per)}, mean "
+        f"{np.mean(per):.3f} ms per batch (first batch after {start:.2f} s)")
+    for w in workers_list:
+        start, per, close = loader_rate(lambda: GrainLoader(ds, 32, g, seed=1, workers=w),
+                                        drain=2 * w)
+        out[f"{name}_grain{w}_batch_ms"] = float(np.mean(per))
+        out[f"{name}_grain{w}_start_s"] = start
+        left = loader_workers_left()
+        log(f"[data] {name}: GrainLoader, {w} worker processes, b32 {spread(per)}, mean "
+            f"{np.mean(per):.3f} ms per batch after the {2 * w} batches prefetched while "
+            f"the workers started (workers started and first batch in {start:.2f} s; "
+            f"closed in {close:.2f} s, worker processes left {len(left)})")
+        if left:
+            raise RuntimeError(f"GrainLoader.close() left workers {left} running")
+    return out
+
+
+def phase_data(torch, train, cli_train, matching_cuda, reset_counts, workdir):
+    """The input pipelines on config #3's input (SSD-512, b32, 512 px,
+    max_boxes 100): the cache built from the 512 px synthetic split, its
+    bytes and time; CacheLoader's ms per batch; the cache staged on the card
+    (bytes there, the gather's device ms, every batch bit-equal to
+    CacheLoader's); GrainLoader at 0, 4 and 8 worker processes and the
+    thread Loader on the same split and on a VOC folder of 256 JPEGs of
+    500 x 375 (the decode-bound case); then train_cli on config #3 under
+    each --loader: ms per step, the card's idle share, K2 once per step."""
+    from shape_based_object_detection_torch import config as config_lib
+    from shape_based_object_detection_torch.data.cache import (
+        CacheLoader, DeviceCacheLoader, MemmapDetection, build_cache,
+    )
+    from shape_based_object_detection_torch.data.voc import VOCDetection
+
+    cfg = config_lib.get_config("config3_ssd512_voc_train")
+    g = cfg.data.max_boxes
+    results = {}
+    ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_TRAIN, split="train",
+                                                  ann_file=""))
+    cache_dir = os.path.join(workdir, "data_cache")
+    t = time.perf_counter()
+    build_cache(ds, cache_dir, g, workers=8)
+    build_s = time.perf_counter() - t
+    cache_bytes = sum(os.path.getsize(os.path.join(cache_dir, f))
+                      for f in os.listdir(cache_dir) if f.endswith(".npy"))
+    mm = MemmapDetection(cache_dir)
+    start, per, _ = loader_rate(lambda: CacheLoader(mm, 32, g, seed=1), drain=0)
+    log(f"[data] build_cache of {APP_TRAIN} ({len(ds)} images at 512 px, max_boxes {g}, 8 "
+        f"threads): {build_s:.2f} s, {cache_bytes} bytes; CacheLoader b32 {spread(per)}, "
+        f"mean {np.mean(per):.3f} ms per batch")
+    results.update({"cache_build_s": build_s, "cache_bytes": cache_bytes,
+                    "cache_loader_batch_ms": float(np.mean(per))})
+
+    t = time.perf_counter()
+    dev = DeviceCacheLoader(mm, 32, g, seed=1)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    on_card = sum(v.numel() * v.element_size() for v in dev._dev.values())
+    host = CacheLoader(mm, 32, g, seed=1)
+    pairs = list(zip(dev.device_batches(0), host.batches(0)))
+    equal = len(pairs) == len(ds) // 32 and all(
+        np.array_equal(a.cpu().numpy(), b) for d, h in pairs for a, b in zip(d, h))
+    chunk = np.sort(dev._epoch_indices(1)[:32])
+    gather = cuda_times_ms(lambda: dev._device_batch(chunk), iters=20)
+    batch_bytes = sum(v.numel() * v.element_size() for v in pairs[0][0])
+    bound = 2 * batch_bytes / HBM_BYTES_PER_S * 1e3  # each byte read once, written once
+    log(f"[data] DeviceCacheLoader: {on_card} bytes staged on the card in {stage_s:.2f} s; "
+        f"{len(pairs)} b32 batches bit-equal to CacheLoader's: {equal}; the on-card gather "
+        f"of a b32 batch ({batch_bytes} bytes, index_select) {spread(gather)} (CUDA events; "
+        f"bound {bound:.4f} ms at 3.35 TB/s) ({nvidia_smi_line()})")
+    if not equal:
+        raise RuntimeError("DeviceCacheLoader's batches differ from CacheLoader's")
+    results.update({"device_cache_bytes": on_card, "device_cache_stage_s": stage_s,
+                    "device_gather_ms": float(np.median(gather)),
+                    "device_gather_bound_ms": bound})
+    del dev, pairs
+    torch.cuda.empty_cache()
+
+    results.update(host_loaders(torch, cfg, ds, "synthetic", (0, 4, 8)))
+    voc_root = os.path.join(workdir, "voc")
+    t = time.perf_counter()
+    jpeg_bytes = write_voc_folder(voc_root, VOC_IMAGES, 9)
+    voc = VOCDetection(voc_root, "train", image_size=512, decode_backend="auto")
+    log(f"[data] a VOC folder of {VOC_IMAGES} JPEGs of 500 x 375 ({jpeg_bytes} bytes) "
+        f"written in {time.perf_counter() - t:.2f} s; decode backend {voc.decode_backend!r}")
+    results.update(host_loaders(torch, cfg, voc, "voc_jpeg", (0, 4, 8)))
+    t = time.perf_counter()
+    build_cache(voc, os.path.join(workdir, "voc_cache"), g, workers=8)
+    results["voc_cache_build_s"] = time.perf_counter() - t
+    log(f"[data] build_cache of the VOC folder (8 threads, one decode per image): "
+        f"{results['voc_cache_build_s']:.2f} s")
+
+    # train_cli on config #3 under each loader: steps 4-8 timed, 8-11 profiled.
+    # One grain run: on the card, a second GrainLoader driven by train_cli in
+    # one process waits 5 s per worker to close (PERF.md §7)
+    steps = 12
+    runs = [("threads", APP_TRAIN), ("cache", APP_TRAIN), ("device", APP_TRAIN),
+            ("threads", voc_root), ("grain", voc_root)]
+    for loader, root in runs:
+        tag = f"{loader}_{'voc_jpeg' if root == voc_root else 'synthetic'}"
+        argv = ["--config", "config3_ssd512_voc_train", "--data-root", root,
+                "--steps", str(steps), "--log-every", "4", "--workers", "8",
+                "--loader", loader, "--cache-dir", os.path.join(workdir, f"cli_cache_{tag}"),
+                "--checkpoint-dir", os.path.join(workdir, f"cli_{tag}")]
+        reset_counts()
+        text, wall, interval, busy, window, idle = cli_loop(torch, train, cli_train, argv,
+                                                            (4, 8), (8, 12))
+        k2 = matching_cuda.launches
+        left = loader_workers_left()
+        if k2 != steps or f"done at step {steps}" not in text or left:
+            raise RuntimeError(f"train_cli --loader {loader} on {root}: K2 {k2} in {steps} "
+                               f"steps, loader workers left running {left}: {text[-300:]}")
+        log(f"[data] train_cli config #3 --loader {loader} on {tag.split('_', 1)[1]}: "
+            f"{interval:.3f} ms per step over steps 4-8 ({32e3 / interval:.1f} images/s), "
+            f"idle share {idle:.3f} over steps 8-11 (busy {busy:.3f} of {window:.3f} ms); "
+            f"wall {wall:.1f} s; K2 launches {k2} (one per step); no loader worker left "
+            f"running")
+        results.update({f"cli_{tag}_step_ms": interval, f"cli_{tag}_idle_share": idle})
+    return results
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_equal_to_plain(torch, train, build_model, matching_cuda, mesh, cfg, batch, name):
+    """Two steps of the data-parallel step on ``mesh`` and of the plain
+    step, from the same weights, batch and generator seed, with cuDNN's
+    deterministic algorithms: metrics and state bit-equal. Returns the
+    data-parallel step's K2 launches and its ms per step beside the plain
+    step's (cuDNN's usual algorithms, CUDA events)."""
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    runs, launches, times = {}, None, {}
+    deterministic = torch.backends.cudnn.deterministic
+    for m in (None, mesh):
+        module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                      generator=torch.Generator().manual_seed(3))
+        state = train.create_train_state(module, cfg)
+        step = train.make_train_step(module, anchors, cfg, mesh=m)
+        torch.backends.cudnn.deterministic = True
+        try:
+            matching_cuda.launches = 0
+            metrics = [{k: v.clone() for k, v in step(state, batch)[1].items()}
+                       for _ in range(2)]
+            torch.cuda.synchronize()
+            if m is not None:
+                launches = matching_cuda.launches
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        runs[m is None] = (metrics, {k: v.clone() for k, v in module.state_dict().items()})
+        times[m is None] = cuda_times_ms(lambda: step(state, batch), iters=5, warmup=2)
+        del module, state, step
+        torch.cuda.empty_cache()
+    (dp_m, dp_s), (pl_m, pl_s) = runs[False], runs[True]
+    same = (all(torch.equal(a[k], b[k]) for a, b in zip(dp_m, pl_m) for k in b)
+            and all(torch.equal(dp_s[k], v) for k, v in pl_s.items()))
+    log(f"[dist] {name}: the data-parallel step in an NCCL group of one vs the plain step, 2 "
+        f"steps, cuDNN deterministic: metrics and state bit-equal: {same} (loss "
+        f"{float(dp_m[-1]['loss']):.6f}); K2 launches {launches} in 2 data-parallel steps; "
+        f"step {spread(times[False])} data-parallel, {spread(times[True])} plain "
+        f"({nvidia_smi_line()})")
+    if not same or launches != 2:
+        raise RuntimeError(f"{name}: data-parallel step bit-equal {same}, K2 {launches}")
+    return launches, float(np.median(times[False])), float(np.median(times[True]))
+
+
+def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, nms,
+                    detection, reset_counts):
+    """An NCCL group of one rank on the card, formed by
+    initialize_multihost from torchrun's environment: its data-parallel
+    step bit-equal to the plain step (RetinaNet R50-FPN-512 b16 bf16, and
+    SSD-512 b32 with train_bn and remat); K2 bit-equal on the rank's
+    augmented local batch; the sharded eval step (config #3 b32): K1 once
+    per batch, bit-equal on the candidates of the rank's rows, and the
+    detections gathered equal to make_eval_step's without a group."""
+    import torch.distributed as dist
+
+    from shape_based_object_detection_torch.data.augment import augment_batch
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+    from shape_based_object_detection_torch.parallel import initialize_multihost, shutdown
+    from tests.torch_kernel_cases import match_check
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out, k1, k2 = {}, {}, {}
+    try:
+        mesh = initialize_multihost()
+        backend = dist.get_backend()
+        if backend != "nccl" or not mesh.distributed or mesh.device.type != "cuda":
+            raise RuntimeError(f"the group formed on {backend}, {mesh}")
+        try:
+            r50 = train_config(config, "bfloat16", 16)
+            launches, dp_ms, plain_ms = dp_equal_to_plain(
+                torch, train, build_model, matching_cuda, mesh, r50,
+                train_batch(np.random.default_rng(60), 16), "R50-FPN-512 b16 bf16")
+            out.update({"dist_r50_b16_bf16_step_ms": dp_ms,
+                        "plain_r50_b16_bf16_step_ms": plain_ms})
+            ssd = ssd_train_config(config, 32)
+            ssd = dataclasses.replace(ssd, model=dataclasses.replace(ssd.model, train_bn=True,
+                                                                     remat=True))
+            batch = train_batch(np.random.default_rng(61), 32, g=100, classes=20)
+            launches, dp_ms, plain_ms = dp_equal_to_plain(
+                torch, train, build_model, matching_cuda, mesh, ssd, batch,
+                "SSD-512 b32 (config #3) with train_bn and remat")
+            out.update({"dist_ssd512_b32_step_ms": dp_ms, "plain_ssd512_b32_step_ms": plain_ms})
+            k2["dist_launches"] = launches
+
+            # K2 on the rank's augmented local batch (its rows of the global batch)
+            gen = torch.Generator(device="cuda").manual_seed(ssd.train.seed)
+            rows = mesh.rows(32)
+            _, gt, lbl, ok = augment_batch(
+                gen, *(torch.from_numpy(batch[k][rows]).cuda() for k in
+                       ("images", "boxes", "labels", "valid")),
+                ssd.data, ssd.model.image_size, mesh.rank, mesh.world)
+            anchors = anchors_for_model(ssd.model).cuda()
+            passed, err, line = match_check(anchors, gt.contiguous(), lbl.contiguous(),
+                                            ok.contiguous(), ssd.match.shape_weight,
+                                            ssd.model.anchors.variances, cfg=ssd.match,
+                                            exact=True)
+            log(f"[kernel] match_anchors on rank {mesh.rank}'s augmented rows {rows} of the "
+                f"global b32 (config #3): {line}")
+            if not passed:
+                raise RuntimeError("match_anchors differs from the plain version on the "
+                                   "rank's batch")
+            k2["dist_max_abs_err"] = err
+
+            # the sharded eval step on config #3 at threshold 0
+            cfg = config.resolve_config("config3_ssd512_voc_train",
+                                        ["model.detect.score_threshold=0.0"])
+            module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                          generator=torch.Generator().manual_seed(4))
+            state = train.create_train_state(module, cfg)
+            images = torch.from_numpy(batch["images"]).cuda()
+            reset_counts()
+            det = train.make_eval_step(module, anchors, cfg, mesh=mesh)(state, images[rows])
+            torch.cuda.synchronize()
+            k1["dist_eval_launches"] = nms_cuda.launches
+            want = train.make_eval_step(module, anchors, cfg)(state, images)
+            same = all(torch.equal(a, b) for a, b in zip(det, want))
+            with torch.inference_mode():
+                x = detection.image_lib.normalize_images(images[rows])
+                cands = detection.select_candidates(*module(x.permute(0, 3, 1, 2)), anchors,
+                                                    cfg.model)
+            k1["dist_eval_max_abs_err"] = k1_on(torch, nms, cands, cfg.model.detect,
+                                                "the sharded eval step's candidates")
+            log(f"[dist] the sharded eval step (config #3 b32 at threshold 0) in the group: K1 "
+                f"launches {k1['dist_eval_launches']} for one batch; its gathered detections "
+                f"equal make_eval_step's without a group: {same}")
+            if k1["dist_eval_launches"] != 1 or not same:
+                raise RuntimeError("the sharded eval step")
+            del module, state
+            torch.cuda.empty_cache()
+        finally:
+            shutdown(mesh)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, k1, k2
+
+
+def dist_cli_worker(kind, out_path, *argv):
+    """One rank of ``torch.distributed.run``: train_cli or eval_cli
+    (``kind``) with ``argv``, its kernels' launches counted from 0 and, for
+    eval_cli, the records it fed its Evaluator, written to ``out_path``
+    (pickle). Run as ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 --no-python python3 -c "import sys, chip_smoke;
+    chip_smoke.dist_cli_worker(*sys.argv[1:])" KIND OUT ARGS...``."""
+    import pickle
+
+    import torch
+
+    from shape_based_object_detection_torch import eval as eval_pkg
+    from shape_based_object_detection_torch.cli import eval_cli, train_cli
+    from shape_based_object_detection_torch.ops import matching_cuda, nms_cuda
+
+    nms_cuda.launches = matching_cuda.launches = 0
+    with KeptEvaluators(eval_pkg) as made:
+        (train_cli if kind == "train" else eval_cli).main(list(argv))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    report = {"k1": nms_cuda.launches, "k2": matching_cuda.launches, "records": [
+        argparse_ns(area_scale=e.area_scale, detections=e.detections,
+                    ground_truth=e.ground_truth) for e in made]}
+    with open(out_path, "wb") as f:
+        pickle.dump(report, f)
+
+
+def torchrun(args, out_path, timeout=300):
+    """``dist_cli_worker`` under torch.distributed.run with one process:
+    (its output, its report)."""
+    import pickle
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "--no-python", sys.executable, "-c",
+           "import sys, chip_smoke; chip_smoke.dist_cli_worker(*sys.argv[1:])", *args[:1],
+           out_path, *args[1:]]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        log(f"[torchrun] {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun {args[:1]}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out_path, "rb") as f:
+        return proc.stdout, pickle.load(f)
+
+
+def phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts, workdir):
+    """train_cli on config #3 under torch.distributed.run with one process
+    per card (an NCCL group of one): 8 steps, a val eval, a checkpoint;
+    then its resume to step 12; K2 once per step in each; then eval_cli
+    on that checkpoint the same way, its records equal to eval_cli's
+    without a group."""
+    import json as json_lib
+
+    from shape_based_object_detection_torch import eval as eval_pkg
+
+    ckpt = os.path.join(workdir, "dist_ckpt")
+    common = ["--config", "config3_ssd512_voc_train", "--data-root", APP_TRAIN,
+              "--log-every", "4", "--workers", "8", "--checkpoint-dir", ckpt]
+    t = time.perf_counter()
+    text, first = torchrun(["train", *common, "--steps", "8", "--eval-every", "8",
+                            "--val-root", APP_VAL, "--val-batches", "1"],
+                           os.path.join(workdir, "dist_train.pkl"))
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    text2, second = torchrun(["train", *common, "--steps", "12"],
+                             os.path.join(workdir, "dist_resume.pkl"))
+    second_s = time.perf_counter() - t
+    ok = ("done at step 8" in text and "voc-mAP(val)=" in text
+          and "restored checkpoint at step 8" in text2 and "done at step 12" in text2
+          and sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())[-1] == 12)
+    log(f"[dist] train_cli config #3 under torch.distributed.run --nproc_per_node 1 (NCCL): "
+        f"8 steps with a val eval in {first_s:.1f} s, K2 {first['k2']}, K1 {first['k1']}; "
+        f"resumed to step 12 in {second_s:.1f} s, K2 {second['k2']}; checkpoint and resume "
+        f"as expected: {ok}")
+    if not ok or first["k2"] != 8 or second["k2"] != 4 or first["k1"] != 1:
+        raise RuntimeError(f"train_cli under torchrun: {text[-500:]} {text2[-500:]}")
+
+    argv = ["--config", "config3_ssd512_voc_train", "--data-root", APP_VAL, "--checkpoint-dir",
+            ckpt, "--max-batches", "2", "--protocol", "voc", "--set",
+            "model.detect.score_threshold=0.0"]
+    text, report = torchrun(["eval", *argv], os.path.join(workdir, "dist_eval.pkl"))
+    reset_counts()
+    with KeptEvaluators(eval_pkg) as made:
+        alone = run_cli(cli_eval.main, argv)
+    got, want = json_lib.loads(text[text.index("{"):]), json_lib.loads(alone[alone.index("{"):])
+    (records,), (ev,) = report["records"], made
+    same = records_equal(records, ev) and got == want
+    log(f"[dist] eval_cli under torch.distributed.run --nproc_per_node 1: voc mAP "
+        f"{got['mAP']:.6f}, K1 {report['k1']} for 2 batches; its records and metrics equal to "
+        f"eval_cli's without a group: {same}")
+    if not same or report["k1"] != 2:
+        raise RuntimeError("eval_cli under torchrun differs from eval_cli alone")
+    return {"dist_train_cli_8_steps_s": first_s, "dist_train_cli_resume_s": second_s}, {
+        "dist_cli_launches": first["k2"] + second["k2"]}, {"dist_eval_cli_launches": report["k1"]}
+
+
+GLOO_STEPS = 2
+
+
+def gloo_rank(rank, world, store, out_path):
+    """One of ``world`` ranks on one card in a gloo group (``file://``
+    store): the data-parallel R50-FPN-512 step, float32 with TF32 off and
+    augmentation, on its rows of the global b4; metrics to ``out_path``
+    (JSON). Run as ``python3 -c "import sys, chip_smoke;
+    chip_smoke.gloo_rank(*sys.argv[1:])" RANK WORLD STORE OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.parallel import Mesh
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = Mesh(dist.group.WORLD, rank, world, torch.device("cuda", 0))
+        metrics = gloo_steps(torch, config, train, build_model, mesh)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(metrics, f)
+
+
+def gloo_steps(torch, config, train, build_model, mesh):
+    """GLOO_STEPS steps of R50-FPN-512 (float32, TF32 off, augmentation,
+    weights from seed 5) on ``mesh``'s rows of a b4 batch from seed 70
+    (``mesh`` None: the whole batch in one process): their metrics."""
+    cfg = train_config(config, "float32", 4, precision="highest", warmup_steps=1)
+    batch = train_batch(np.random.default_rng(70), 4)
+    rows = slice(None) if mesh is None else mesh.rows(4)
+    module, anchors = build_model(cfg.model, device="cuda", train=True,
+                                  generator=torch.Generator().manual_seed(5))
+    state = train.create_train_state(module, cfg)
+    step = train.make_train_step(module, anchors, cfg, mesh=mesh)
+    out = []
+    for _ in range(GLOO_STEPS):
+        state, m = step(state, {k: v[rows] for k, v in batch.items()})
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def phase_dist_gloo(torch, config, train, build_model, workdir):
+    """Two ranks sharing the one card over gloo (NCCL refuses two ranks on
+    one device): their data-parallel step on b/2 each against this
+    process's step on the global b4 (R50-FPN-512 float32, TF32 off,
+    augmentation): loss within 1e-5 relative, grad_norm within 1e-4. When
+    gloo cannot run the collectives on CUDA tensors, that is reported and
+    nothing is claimed."""
+    store = os.path.join(workdir, "gloo_store")
+    outs = [os.path.join(workdir, f"gloo_rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.gloo_rank(*sys.argv[1:])",
+         str(r), "2", store, outs[r]], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = gloo_steps(torch, config, train, build_model, None)
+    if any(p.returncode for p in procs):
+        unsupported = [t for t in texts if "gloo" in t.lower() and (
+            "not supported" in t.lower() or "unsupported" in t.lower())]
+        if unsupported:
+            log(f"[dist] gloo on CUDA tensors: not served here, nothing claimed: "
+                f"{unsupported[0].strip().splitlines()[-1]}")
+            return {"dist_gloo_two_ranks": "not served"}
+        raise RuntimeError(f"the gloo ranks failed: {[t[-1500:] for t in texts]}")
+    got = [json.load(open(o)) for o in outs]
+    worst = {}
+    for r in got:
+        for g, w in zip(r, want):
+            for k in ("loss", "grad_norm", "num_pos", "loss_cls", "loss_box"):
+                worst[k] = max(worst.get(k, 0.0), abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+    ok = got[0] == got[1] and worst["loss"] <= 1e-5 and worst["grad_norm"] <= 1e-4
+    log(f"[dist] two ranks on the one card over gloo, b2 each, vs one process on the global "
+        f"b4 (R50-FPN-512 fp32, TF32 off, augmentation, {GLOO_STEPS} steps): ranks agree: "
+        f"{got[0] == got[1]}; worst relative differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + " (bounds: loss 1e-5, grad_norm 1e-4)")
+    if not ok:
+        raise RuntimeError(f"gloo two-rank step differs: {worst}")
+    return {f"dist_gloo_worst_rel_{k}": v for k, v in worst.items()}
+
+
+PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist")
 
 
 def main() -> int:
@@ -3140,6 +3846,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    adopt_orphans()
     sys.path.insert(0, ROOT)
     from shape_based_object_detection_torch.utils import image as image_lib
     from shape_based_object_detection_torch.utils import native
@@ -3170,13 +3877,27 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        return run_phases(torch, want, only, t0, workdir)
+        kernels = run_phases(torch, want, only, t0, workdir)
     finally:
+        t = time.perf_counter()
+        stop_children()
         shutil.rmtree(workdir, ignore_errors=True)
+        log(f"[procs] every process this run started has ended (checked and reaped in "
+            f"{time.perf_counter() - t:.2f} s)")
+    if kernels is None:
+        return 0
+    log(json.dumps({"kernels": kernels}))
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    log(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
-def run_phases(torch, want, only, t0, workdir) -> int:
-    """The phase groups in order, then the result lines."""
+def run_phases(torch, want, only, t0, workdir):
+    """The phase groups in order: the kernels' entries of the result, None
+    for a partial run."""
     from shape_based_object_detection_torch import config, detection, serving, train
     from shape_based_object_detection_torch.cli import eval_cli as cli_eval
     from shape_based_object_detection_torch.cli import train_cli as cli_train
@@ -3337,12 +4058,29 @@ def run_phases(torch, want, only, t0, workdir) -> int:
         # K1 once per batch in every tier, 3 per 2-scale int8 batch, once per
         # artifact call
         k1.update(int8_k1)
+    # the input pipelines: the cache, the card-staged cache, worker processes
+    if want("data"):
+        results.update(phase_data(torch, train, cli_train, matching_cuda, reset_counts,
+                                  workdir))
+    # data parallelism: NCCL groups of one, torchrun, two ranks over gloo
+    if want("dist"):
+        dist_out, dist_k1, dist_k2 = phase_dist_nccl(torch, config, train, build_model,
+                                                     matching_cuda, nms_cuda, nms, detection,
+                                                     reset_counts)
+        results.update(dist_out)
+        cli_out, cli_k2, cli_k1 = phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts,
+                                                 workdir)
+        results.update(cli_out)
+        results.update(phase_dist_gloo(torch, config, train, build_model, workdir))
+        # K2 once per data-parallel step and K1 once per sharded eval batch
+        k1.update({**dist_k1, **cli_k1})
+        k2.update({**dist_k2, **cli_k2})
 
     log(json.dumps(results))
     if only:
         log(f"[partial] phase groups {sorted(only)} passed in "
             f"{time.perf_counter() - t0:.1f} s; no result line for a partial run")
-        return 0
+        return None
     kernels = [{
         "name": "nms_greedy",
         "route": "cuda",
@@ -3356,13 +4094,7 @@ def run_phases(torch, want, only, t0, workdir) -> int:
         "replaces": "shape_based_object_detection_tpu/ops/matching_pallas.py:72",
         **k2,
     }]
-    log(json.dumps({"kernels": kernels}))
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
-    log(nvidia_smi_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -11,6 +11,12 @@ caller's thread (so the next step may update it in place) and a writer
 thread writes the snapshot into a hidden temporary directory, which is then
 renamed into place, so no partial checkpoint is ever visible; the newest
 ``keep`` are kept.
+
+Under a process group (a ``parallel.Mesh`` with a group) every rank holds
+the same state: rank 0 alone writes, ``wait`` (and a synchronous save)
+ends with a barrier once its writes are in place, and ``restore_latest``
+reads on every rank the step rank 0 finds newest, as the reference's one
+orbax save across processes is restored alike on each.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+from shape_based_object_detection_torch.parallel.mesh import (
+    Mesh, barrier, broadcast_int,
+)
 from shape_based_object_detection_torch.train import TrainState
 
 STATE_FILE = "state.pt"
@@ -131,10 +140,13 @@ def apply_snapshot(snap: dict, template: TrainState) -> TrainState:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self._pool = ThreadPoolExecutor(1) if async_save else None
         self._pending: List[Future] = []
         self._lock = threading.Lock()
@@ -145,15 +157,23 @@ class CheckpointManager:
     def save(self, state: TrainState, step: Optional[int] = None) -> None:
         """Snapshot ``state`` now and write it as checkpoint ``step``
         (default: ``state.step``) in the background; an existing checkpoint
-        of that step is replaced."""
-        snap = snapshot(state)
-        if step is not None:
-            snap["step"] = int(step)
-        step = snap["step"]
+        of that step is replaced. Under a group only rank 0 writes; a
+        synchronous save returns on every rank once the write is done."""
+        if self.writer:
+            snap = snapshot(state)
+            if step is not None:
+                snap["step"] = int(step)
+            step = snap["step"]
+            if self._pool is None:
+                self._write(snap, step)
+            else:
+                self._pending.append(self._pool.submit(self._write, snap, step))
         if self._pool is None:
-            self._write(snap, step)
-        else:
-            self._pending.append(self._pool.submit(self._write, snap, step))
+            self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def _write(self, snap: dict, step: int) -> None:
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}-{threading.get_ident()}")
@@ -195,8 +215,12 @@ class CheckpointManager:
 
     def restore_latest(self, template: TrainState) -> Optional[TrainState]:
         """The newest checkpoint restored into ``template`` (see
-        ``restore_step``), or None when there is none (a fresh start)."""
+        ``restore_step``), or None when there is none (a fresh start).
+        Under a group, every rank restores the step rank 0 finds newest."""
         step = self.latest_step()
+        if self.mesh is not None:
+            step = broadcast_int(-1 if step is None else step, self.mesh)
+            step = None if step < 0 else step
         return None if step is None else self.restore_step(step, template)
 
     def restore_step(self, step: int, template: TrainState) -> TrainState:
@@ -207,10 +231,12 @@ class CheckpointManager:
         return apply_snapshot(self.read(step), template)
 
     def wait(self) -> None:
-        """Wait for the writes in flight; raises a write's error."""
+        """Wait for the writes in flight; raises a write's error. Under a
+        group every rank returns once rank 0's writes are in place."""
         pending, self._pending = self._pending, []
         for f in pending:
             f.result()
+        self._barrier()
 
     def close(self) -> None:
         self.wait()
@@ -222,13 +248,14 @@ class BestCheckpointKeeper:
     """Keeps the single best checkpoint by a metric to maximise (val mAP),
     apart from the rolling checkpoints, so a restart resumes the latest
     state while eval and serving can reach the best. The best value and
-    step persist in ``best.json`` beside it."""
+    step persist in ``best.json`` beside it. Under a group (``mesh``) every
+    rank decides alike on the same value and rank 0 writes."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._meta_path = os.path.join(self.directory, "best.json")
-        self._mgr = CheckpointManager(self.directory, keep=1, async_save=False)
+        self._mgr = CheckpointManager(self.directory, keep=1, async_save=False, mesh=mesh)
         if os.path.exists(self._meta_path):
             with open(self._meta_path) as f:
                 meta = json.load(f)
@@ -250,10 +277,11 @@ class BestCheckpointKeeper:
         # leaves best.json ahead of the weights (later bests are missed
         # until one beats it), never behind them (a worse value would evict
         # the true best)
-        tmp = self._meta_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"step": self.best_step, "value": self.best_value}, f)
-        os.replace(tmp, self._meta_path)
+        if self._mgr.writer:
+            tmp = self._meta_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"step": self.best_step, "value": self.best_value}, f)
+            os.replace(tmp, self._meta_path)
         self._mgr.save(state, step)
         return True
 

@@ -8,6 +8,13 @@ CPU) and prints first-party COCO AP[.5:.95] or VOC mAP as JSON: in the
 float tier, an int8 tier (``--quantize [weights|full] [--act-scales]``,
 which measures the quantization's mAP drift), or an exported artifact
 (``--artifact``, the export's parity measurement).
+
+Under ``torchrun --nproc_per_node N`` (one process per card) the
+evaluation is sharded: each rank detects its rows of every batch of
+``data.batch_size`` (an artifact's batch per rank), the ranks gather the
+detections and annotations in rank order, and every rank scores the whole
+split in the single process's order; rank 0 prints the result and writes
+``--dump-results``.
 """
 
 from __future__ import annotations
@@ -72,18 +79,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    import torch
-
     from shape_based_object_detection_torch import config as config_lib
-    from shape_based_object_detection_torch.cli.common import enable_tta_hflip, parse_scales
-    from shape_based_object_detection_torch.cli.train_cli import build_dataset, upload
-    from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
-    from shape_based_object_detection_torch.eval import Evaluator
-    from shape_based_object_detection_torch.models.factory import build_model
-    from shape_based_object_detection_torch.ops.boxes import boxes_to_original
-    from shape_based_object_detection_torch.quantize import make_serving_detect
-    from shape_based_object_detection_torch.utils.device import resolve_device
+    from shape_based_object_detection_torch.cli.common import enable_tta_hflip
+    from shape_based_object_detection_torch.parallel import initialize_multihost, shutdown
 
     args = _parser().parse_args(argv)
     cfg = config_lib.resolve_config(args.config, args.overrides)
@@ -104,7 +102,34 @@ def main(argv=None):
     if args.dataset:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 dataset=args.dataset))
-    dev = resolve_device(args.device)
+    # torchrun's environment forms the group; alone, no group forms
+    mesh = initialize_multihost(device=args.device)
+    try:
+        _evaluate(args, cfg, mesh)
+    finally:
+        shutdown(mesh)
+
+
+def _evaluate(args, cfg, mesh):
+    """The evaluation of ``main`` on ``mesh`` (a rank of a group, or a
+    single process)."""
+    import torch
+
+    from shape_based_object_detection_torch.cli.common import parse_scales
+    from shape_based_object_detection_torch.cli.train_cli import (
+        build_dataset, sharded_batches, upload,
+    )
+    from shape_based_object_detection_torch.data.pipeline import Loader
+    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
+    from shape_based_object_detection_torch.eval import Evaluator
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops.boxes import boxes_to_original
+    from shape_based_object_detection_torch.parallel.mesh import (
+        all_gather_rows, make_mesh_for_batch,
+    )
+    from shape_based_object_detection_torch.quantize import make_serving_detect
+
+    dev = mesh.device
     if args.artifact:
         from shape_based_object_detection_torch.export import load_artifact
 
@@ -118,9 +143,10 @@ def main(argv=None):
             if header.get(key, got) != got:
                 raise SystemExit(f"artifact/config mismatch: header {key}="
                                  f"{header.get(key)!r} but --config resolves to {got!r}")
-        # the artifact has one batch shape; batches_padded pads the tail to it
+        # the artifact has one batch shape, each rank's; batches_padded pads
+        # the tail to the ranks' batches together
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-            cfg.data, batch_size=header["batch_size"]))
+            cfg.data, batch_size=header["batch_size"] * mesh.world))
     else:
         module, anchors = build_model(cfg.model, dev)
         if args.checkpoint_dir:
@@ -147,6 +173,7 @@ def main(argv=None):
     # (32^2/96^2 px) are in ORIGINAL-image pixels, from each image's size;
     # otherwise the uniform network-input-pixel scale applies
     dataset = build_dataset(cfg, args, include_ignore=True)
+    make_mesh_for_batch(cfg.data.batch_size, mesh, cfg.mesh)  # raises if indivisible
     loader = Loader(dataset, cfg.data.batch_size, cfg.data.max_boxes, shuffle=False)
     is_coco_ds = hasattr(dataset, "coco")
     ev = Evaluator(area_scale=1.0 if is_coco_ds else cfg.model.image_size)
@@ -166,16 +193,19 @@ def main(argv=None):
     coco_results = []
     sample_idx = 0
     # batches_padded covers the ragged tail; padded rows are dropped
-    for i, (batch, n_valid) in enumerate(loader.batches_padded()):
+    fields = ("boxes", "scores", "labels", "valid")
+    for i, (batch, n_valid, gt) in enumerate(sharded_batches(loader, mesh)):
         det = detect(upload(batch.images, dev))
-        det = types.SimpleNamespace(**{k: getattr(det, k)[:n_valid].cpu().numpy()
-                                       for k in ("boxes", "scores", "labels", "valid")})
+        # the ranks' detections in rank order: the whole batch's
+        det = all_gather_rows((getattr(det, k) for k in fields), mesh)
+        det = types.SimpleNamespace(**{k: d[:n_valid].cpu().numpy()
+                                       for k, d in zip(fields, det)})
+        boxes, labels, valid, crowd = (a[:n_valid] for a in gt)
         # detect's labels are 0-based foreground ids; GT labels are 1-based
-        ev.add_batch(det, batch.boxes[:n_valid], batch.labels[:n_valid] - 1,
-                     batch.valid[:n_valid],
+        ev.add_batch(det, boxes, labels - 1, valid,
                      area_factors=batch_area_factors(sample_idx, n_valid),
-                     **{flag_kw: batch.crowd[:n_valid]})
-        if args.dump_results and is_coco_ds:
+                     **{flag_kw: crowd})
+        if args.dump_results and is_coco_ds and mesh.rank == 0:
             for b in range(n_valid):
                 im = dataset.images[sample_idx + b]
                 v = det.valid[b]
@@ -193,6 +223,8 @@ def main(argv=None):
         sample_idx += n_valid
         if args.max_batches and i + 1 >= args.max_batches:
             break
+    if mesh.rank:
+        return  # rank 0 reports
     if args.dump_results:
         with open(args.dump_results, "w") as f:
             json.dump(coco_results, f)

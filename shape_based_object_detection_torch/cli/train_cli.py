@@ -7,6 +7,14 @@ Runs on the card unless given ``--device cpu``. Checkpoints (the whole
 train state) go to ``--checkpoint-dir``; a rerun resumes from the latest
 one, at its place in the data schedule. SIGTERM or SIGINT finishes the step
 in flight, saves and exits 0.
+
+Data-parallel over N processes, one per card (NCCL; gloo with ``--device
+cpu``): ``torchrun --nproc_per_node N -m
+shape_based_object_detection_torch.cli.train_cli ...``, or N processes
+started by hand with ``--num-processes N --process-id i --coordinator
+host:port``. ``data.batch_size`` is the global batch; each rank loads its
+``batch_size / N`` rows, and the step equals a single process's on the
+global batch. Rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -21,6 +29,10 @@ import signal
 
 import numpy as np
 import torch
+
+from shape_based_object_detection_torch.parallel.mesh import (
+    DEFAULT_TIMEOUT_S, all_gather_arrays, single_process,
+)
 
 METRIC_LAG = 4  # steps between a step's launch and the read of its metrics
 
@@ -123,32 +135,50 @@ def build_dataset(cfg, args, include_ignore: bool = False):
                               num_classes=cfg.model.num_classes)
 
 
-def upload(array: np.ndarray, dev: torch.device) -> torch.Tensor:
+def upload(array, dev: torch.device) -> torch.Tensor:
     """A host batch on ``dev``: through pinned memory, asynchronously, on
-    the card."""
+    the card. A tensor already there (a device-staged cache's) is used as
+    it is."""
+    if isinstance(array, torch.Tensor):
+        return array.to(dev)
     x = torch.from_numpy(array)
     if dev.type == "cuda":
         x = x.pin_memory()
     return x.to(dev, non_blocking=True)
 
 
-def evaluate(eval_step, state, loader, cfg, dev, max_batches: int = 0):
+def sharded_batches(loader, mesh):
+    """``loader.batches_padded()`` fed by a data-parallel group: each rank
+    loads its rows of every padded batch (``Mesh.rows``); yields ``(batch,
+    n_valid, gt)`` where ``gt`` is the whole batch's (boxes, labels, valid,
+    crowd), gathered from the ranks in rank order. Alone, the batch's own."""
+    rows = mesh.rows(loader.batch_size) if mesh.distributed else None
+    for b, n_valid in loader.batches_padded(rows=rows):
+        gt = (b.boxes, b.labels, b.valid, b.crowd)
+        yield b, n_valid, all_gather_arrays(gt, mesh)
+
+
+def evaluate(eval_step, state, loader, cfg, dev, max_batches: int = 0, mesh=None):
     """VOC mAP of ``eval_step`` over ``loader.batches_padded()`` (at most
     ``max_batches`` batches when set), with the dataset's flag channel: COCO
     crowd (crowd IoU) or VOC difficult (plain ignore). Returns the
-    Evaluator."""
+    Evaluator. Under a data-parallel ``mesh`` (with ``eval_step`` made on
+    it) each rank runs its rows of each batch and every rank scores the
+    whole split in the single process's order: the same records, the same
+    metric."""
     import types
 
     from shape_based_object_detection_torch.eval import Evaluator
 
+    mesh = single_process(dev) if mesh is None else mesh
     ev = Evaluator(area_scale=cfg.model.image_size)
     flag_kw = "gt_crowd" if cfg.data.dataset == "coco" else "gt_ignore"
-    for i, (b, n_valid) in enumerate(loader.batches_padded()):
+    for i, (b, n_valid, gt) in enumerate(sharded_batches(loader, mesh)):
         det = eval_step(state, upload(b.images, dev))
         det = types.SimpleNamespace(**{k: getattr(det, k)[:n_valid].cpu().numpy()
                                        for k in ("boxes", "scores", "labels", "valid")})
-        ev.add_batch(det, b.boxes[:n_valid], b.labels[:n_valid] - 1, b.valid[:n_valid],
-                     **{flag_kw: b.crowd[:n_valid]})
+        boxes, labels, valid, crowd = (a[:n_valid] for a in gt)
+        ev.add_batch(det, boxes, labels - 1, valid, **{flag_kw: crowd})
         if max_batches and i + 1 >= max_batches:
             break
     return ev
@@ -180,11 +210,22 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--val-batches", type=int, default=0,
                    help="cap on val batches per eval (0 = the whole split)")
     p.add_argument("--workers", type=int, default=4,
-                   help="data-loader threads (0 = serial)")
+                   help="data-loader workers: threads for --loader threads, "
+                        "processes for --loader grain, cache-build threads for "
+                        "--loader cache|device (0 = serial/in-process)")
     p.add_argument("--loader", choices=["threads", "grain", "cache", "device"],
                    default="threads",
-                   help="input pipeline; only 'threads' (the thread-pool "
-                        "Loader) is ported")
+                   help="input pipeline: 'threads' = the thread-pool Loader; "
+                        "'grain' = worker processes (torch DataLoader) on "
+                        "grain's schedule; 'cache' = decode the dataset once "
+                        "into a memmap cache (see --cache-dir), then one "
+                        "vectorized gather per batch; 'device' = that cache "
+                        "staged on the card, batches gathered there (no "
+                        "per-step host-to-card copy; the dataset must fit in "
+                        "the card's memory; single process only)")
+    p.add_argument("--cache-dir", default="",
+                   help="--loader cache|device location (default "
+                        "<checkpoint-dir>/data_cache)")
     p.add_argument("--init-params", default="",
                    help="initialize the model from a state-dict file "
                         "(torch.save of module.state_dict()); a resumable "
@@ -192,7 +233,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ema-decay", type=float, default=-1.0,
                    help="override TrainConfig.ema_decay (e.g. 0.999; "
                         "eval_cli --ema scores the averaged weights)")
-    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="data-parallel processes, one per card (without it, "
+                        "torchrun's environment sets the group)")
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--coordinator", default="",
+                   help="host:port where process 0 meets the others")
+    p.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                   help="seconds a process waits for the others, to form the "
+                        "group and in each collective, before it fails")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override, e.g. --set model.image_size=512 "
@@ -228,44 +277,111 @@ def resolve_cli_config(args):
     return cfg
 
 
+def build_loader(args, cfg, dataset, mesh, batch_size: int):
+    """The training loader ``--loader`` names, for this rank's shard at its
+    per-rank ``batch_size``."""
+    kw = dict(seed=cfg.train.seed, host_id=mesh.rank, num_hosts=mesh.world,
+              workers=args.workers)
+    if args.loader == "grain":
+        from shape_based_object_detection_torch.data.grain_pipeline import GrainLoader
+
+        return GrainLoader(dataset, batch_size, cfg.data.max_boxes, **kw)
+    if args.loader in ("cache", "device"):
+        from shape_based_object_detection_torch.data.cache import (
+            CacheLoader, DeviceCacheLoader, MemmapDetection, build_cache,
+        )
+
+        cache_dir = cache_root(args, cfg)
+        build_cache(dataset, cache_dir, cfg.data.max_boxes, workers=max(1, args.workers))
+        if args.loader == "device":
+            return DeviceCacheLoader(MemmapDetection(cache_dir), batch_size,
+                                     cfg.data.max_boxes, device=mesh.device, **kw)
+        return CacheLoader(MemmapDetection(cache_dir), batch_size, cfg.data.max_boxes, **kw)
+    from shape_based_object_detection_torch.data.pipeline import Loader
+
+    return Loader(dataset, batch_size, cfg.data.max_boxes, **kw)
+
+
+def cache_root(args, cfg) -> str:
+    return args.cache_dir or os.path.join(cfg.train.checkpoint_dir, "data_cache")
+
+
+def build_val_loader(args, cfg, mesh):
+    """The validation split's loader at the global batch (each rank loads
+    its rows of every batch); with ``--loader device`` staged on the card
+    too, else the thread Loader."""
+    val_args = argparse.Namespace(
+        data_root=args.val_root, ann_file=args.val_ann_file or args.ann_file,
+        split=args.val_split)
+    dataset = build_dataset(cfg, val_args, include_ignore=True)
+    if args.loader == "device":
+        from shape_based_object_detection_torch.data.cache import (
+            DeviceCacheLoader, MemmapDetection, build_cache,
+        )
+
+        cache_dir = cache_root(args, cfg) + "_val"
+        build_cache(dataset, cache_dir, cfg.data.max_boxes, workers=max(1, args.workers))
+        return DeviceCacheLoader(MemmapDetection(cache_dir), cfg.data.batch_size,
+                                 cfg.data.max_boxes, device=mesh.device, shuffle=False)
+    from shape_based_object_detection_torch.data.pipeline import Loader
+
+    return Loader(dataset, cfg.data.batch_size, cfg.data.max_boxes, shuffle=False,
+                  workers=args.workers)
+
+
+def parameter_checksum(module) -> float:
+    """The sum of every parameter in float64: equal on ranks in step."""
+    with torch.no_grad():
+        return float(sum(p.double().sum() for p in module.parameters()))
+
+
 def main(argv=None):
     from shape_based_object_detection_torch import config as config_lib
-    from shape_based_object_detection_torch import train as train_lib
-    from shape_based_object_detection_torch.checkpoint import (
-        BestCheckpointKeeper, CheckpointManager,
-    )
-    from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.models.factory import build_model
-    from shape_based_object_detection_torch.utils.device import resolve_device
-    from shape_based_object_detection_torch.utils.metrics import MetricsLogger
+    from shape_based_object_detection_torch.parallel import initialize_multihost, shutdown
 
     args = _parser().parse_args(argv)
-    if args.loader != "threads":
-        raise NotImplementedError(
-            f"--loader {args.loader} is not ported yet (ROADMAP.md, modules still "
-            "to port, item 3: the cache, device and grain loaders); use the "
-            "default --loader threads")
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1 (multi-process data parallelism) is not ported "
-            "yet (ROADMAP.md, modules still to port, item 5)")
     cfg = resolve_cli_config(args)
     if args.dump_config:
         config_lib.save_config_file(cfg, args.dump_config)
         print(f"wrote resolved config to {args.dump_config}")
         if not args.steps:
             return
+    mesh = initialize_multihost(args.coordinator or None, args.num_processes or None,
+                                args.process_id, args.device, args.dist_timeout)
+    try:
+        train(args, cfg, mesh)
+    finally:
+        shutdown(mesh)
 
-    dev = resolve_device(args.device)
+
+def train(args, cfg, mesh):
+    """The training loop of ``main`` on ``mesh`` (this process's place in
+    the data-parallel group, or a single process)."""
+    from shape_based_object_detection_torch import train as train_lib
+    from shape_based_object_detection_torch.checkpoint import (
+        BestCheckpointKeeper, CheckpointManager,
+    )
+    from shape_based_object_detection_torch.data.pipeline import Loader
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.parallel.mesh import (
+        broadcast_state, make_mesh_for_batch,
+    )
+    from shape_based_object_detection_torch.utils.metrics import MetricsLogger
+
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    dev = mesh.device
+    per_rank_bs = make_mesh_for_batch(cfg.data.batch_size, mesh, cfg.mesh)
     module, anchors = build_model(cfg.model, dev, train=True)
     if args.init_params:
         module.load_state_dict(torch.load(args.init_params, map_location=dev,
                                           weights_only=True), strict=True)
-        print(f"initialized params from {args.init_params}")
+        say(f"initialized params from {args.init_params}")
     state = train_lib.create_train_state(module, cfg, device=dev)
-    train_step = train_lib.make_train_step(module, anchors, cfg, device=dev)
+    train_step = train_lib.make_train_step(module, anchors, cfg, device=dev, mesh=mesh)
 
-    ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg.train.keep_checkpoints)
+    ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg.train.keep_checkpoints,
+                             mesh=mesh)
     try:
         restored = ckpt.restore_latest(state)
     except ValueError as e:
@@ -285,33 +401,31 @@ def main(argv=None):
         # disagree with --ema-decay either way
         if cfg.train.ema_decay > 0 and state.ema is None:
             state.ema = {n: p.detach().clone() for n, p in module.named_parameters()}
-            print("checkpoint had no EMA weights; starting EMA from the "
-                  "restored params")
+            say("checkpoint had no EMA weights; starting EMA from the "
+                "restored params")
         elif cfg.train.ema_decay <= 0 and state.ema is not None:
             state.ema = None
-            print("checkpoint had EMA weights but ema_decay=0; dropping them "
-                  "for this run")
-        print(f"restored checkpoint at step {state.step}")
+            say("checkpoint had EMA weights but ema_decay=0; dropping them "
+                "for this run")
+        say(f"restored checkpoint at step {state.step}")
+    # every rank starts from rank 0's state
+    state = broadcast_state(state, mesh)
 
     dataset = build_dataset(cfg, args)
-    loader = Loader(dataset, cfg.data.batch_size, cfg.data.max_boxes,
-                    seed=cfg.train.seed, workers=args.workers)
-    logger = MetricsLogger(log_every=args.log_every, tensorboard_dir=args.tb_dir or None)
-    eval_step = (train_lib.make_eval_step(module, anchors, cfg, device=dev)
+    loader = build_loader(args, cfg, dataset, mesh, per_rank_bs)
+    logger = MetricsLogger(log_every=args.log_every,
+                           tensorboard_dir=(args.tb_dir or None) if lead else None)
+    eval_step = (train_lib.make_eval_step(module, anchors, cfg, device=dev, mesh=mesh)
                  if args.eval_every else None)
 
     # val-split eval and best-mAP tracking under <checkpoint-dir>/best
     val_loader = best_keeper = None
     if args.eval_every and args.val_root:
-        val_args = argparse.Namespace(
-            data_root=args.val_root, ann_file=args.val_ann_file or args.ann_file,
-            split=args.val_split)
-        val_loader = Loader(build_dataset(cfg, val_args, include_ignore=True),
-                            cfg.data.batch_size, cfg.data.max_boxes, shuffle=False,
-                            workers=args.workers)
-        best_keeper = BestCheckpointKeeper(os.path.join(cfg.train.checkpoint_dir, "best"))
+        val_loader = build_val_loader(args, cfg, mesh)
+        best_keeper = BestCheckpointKeeper(os.path.join(cfg.train.checkpoint_dir, "best"),
+                                           mesh=mesh)
     # a train-sample eval gets a Loader of its own: the training loader's
-    # producer thread may be mid-epoch
+    # producer thread (or stream) may be mid-epoch
     train_sample_loader = None
     if args.eval_every and val_loader is None:
         train_sample_loader = Loader(dataset, cfg.data.batch_size, cfg.data.max_boxes,
@@ -319,9 +433,9 @@ def main(argv=None):
 
     def run_eval(state):
         if val_loader is not None:
-            ev = evaluate(eval_step, state, val_loader, cfg, dev, args.val_batches)
+            ev = evaluate(eval_step, state, val_loader, cfg, dev, args.val_batches, mesh)
         else:
-            ev = evaluate(eval_step, state, train_sample_loader, cfg, dev, 5)
+            ev = evaluate(eval_step, state, train_sample_loader, cfg, dev, 5, mesh)
         return ev.voc()["mAP"]
 
     with preemption_signals() as preempted:
@@ -332,7 +446,14 @@ def main(argv=None):
         epoch = step // spe if spe else 0
         skip = step % spe if spe else 0
         if step and (epoch or skip):
-            print(f"resuming data schedule at epoch {epoch}, batch {skip}")
+            say(f"resuming data schedule at epoch {epoch}, batch {skip}")
+        if step and not hasattr(loader, "_epoch_indices"):
+            # one stream serves every epoch (grain): drop the whole consumed
+            # prefix from it, epoch after epoch
+            prefix = itertools.chain.from_iterable(loader.batches(e) for e in itertools.count())
+            for _ in itertools.islice(prefix, epoch * spe + skip):
+                pass
+            skip = 0
         nonfinite_steps = 0
         # lagged metrics: a step's metrics are stacked into one tensor on the
         # device and copied to pinned host memory without a wait; they are read
@@ -344,7 +465,8 @@ def main(argv=None):
             nonlocal nonfinite_steps
             s, packed = pending.popleft()
             m = read_metrics(packed)
-            # 3 non-finite losses in a row: the parameters are inf/NaN
+            # 3 non-finite losses in a row: the parameters are inf/NaN (the
+            # metrics are the group's, so every rank stops together)
             if not np.isfinite(m["loss"]):
                 nonfinite_steps += 1
                 if nonfinite_steps >= 3:
@@ -357,7 +479,7 @@ def main(argv=None):
                 nonfinite_steps = 0
             line = logger.update(s, m, batch_size=cfg.data.batch_size)
             if line:
-                print(line, flush=True)
+                say(line, flush=True)
 
         def _drain():
             while pending:
@@ -368,6 +490,11 @@ def main(argv=None):
                 if lo is not None:
                     lo.close()
             logger.close()
+
+        def _finish():
+            if mesh.distributed:
+                print(f"rank {mesh.rank} of {mesh.world}: parameter checksum "
+                      f"{parameter_checksum(module)!r}", flush=True)
 
         while step < cfg.train.total_steps:
             batch_iter = loader.device_batches(epoch, device=dev)
@@ -385,7 +512,7 @@ def main(argv=None):
                     ckpt.save(state, step)
                     ckpt.close()
                     _close()
-                    print(f"preempted: checkpoint saved at step {step}", flush=True)
+                    say(f"preempted: checkpoint saved at step {step}", flush=True)
                     return
                 if step % cfg.train.checkpoint_every == 0:
                     ckpt.save(state, step)
@@ -396,7 +523,7 @@ def main(argv=None):
                     line = f"step {step}  voc-mAP({which})={val_map:.4f}"
                     if best_keeper is not None and best_keeper.maybe_save(state, step, val_map):
                         line += "  [new best]"
-                    print(line, flush=True)
+                    say(line, flush=True)
                 if step >= cfg.train.total_steps:
                     break
             epoch += 1
@@ -404,7 +531,8 @@ def main(argv=None):
         ckpt.save(state, step)
         ckpt.close()
         _close()
-        print(f"done at step {step}")
+        _finish()
+        say(f"done at step {step}")
 
 
 if __name__ == "__main__":

@@ -308,7 +308,17 @@ def augment_batch(
     valid: torch.Tensor,
     cfg: DataConfig,
     out_size: int,
+    rank: int = 0,
+    world: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Draw from ``generator`` (on the images' device) and apply."""
-    draws = draw_augment(generator, images_u8.shape[0], images_u8.device)
+    """Draw from ``generator`` (on the images' device) and apply. With
+    ``world > 1`` the images are rank ``rank``'s rows of a global batch of
+    ``world`` times as many: the draws are the global batch's, and this
+    rank keeps its rows, so its images are augmented as in a single
+    process's step on the global batch and every rank's generator stays in
+    step with the others'."""
+    b = images_u8.shape[0]
+    draws = draw_augment(generator, b * world, images_u8.device)
+    if world > 1:
+        draws = AugmentDraws(*(d[rank * b:(rank + 1) * b] for d in draws))
     return apply_augment(draws, images_u8, boxes, labels, valid, cfg, out_size)

@@ -156,11 +156,8 @@ class Loader:
         """Full batches per epoch per host: the train loop's epoch length."""
         return len(self._epoch_indices(0)) // self.batch_size
 
-    def batches_padded(self, epoch: int = 0):
-        """Every sample of this host's shard exactly once, for eval: the
-        ragged tail batch is padded to the batch shape by repeating its last
-        sample. Yields ``(DetectionBatch, n_valid)``; rows >= n_valid are
-        padding."""
+    def _padded_chunks(self, epoch: int, rows: Optional[slice]):
+        """(indices, n_valid) of ``batches_padded``."""
         idx = self._epoch_indices(epoch)
         bs = self.batch_size
         for start in range(0, len(idx), bs):
@@ -168,6 +165,17 @@ class Loader:
             n_valid = len(chunk)
             if n_valid < bs:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bs - n_valid)])
+            yield (chunk if rows is None else chunk[rows]), n_valid
+
+    def batches_padded(self, epoch: int = 0, rows: Optional[slice] = None):
+        """Every sample of this host's shard exactly once, for eval: the
+        ragged tail batch is padded to the batch shape by repeating its last
+        sample. Yields ``(DetectionBatch, n_valid)``; rows >= n_valid are
+        padding. With ``rows`` (a data-parallel rank's ``Mesh.rows`` of the
+        batch size) only those rows of each padded batch are loaded, and
+        ``n_valid`` is still the whole batch's: the ranks' rows, gathered in
+        rank order, are the whole padded batch."""
+        for chunk, n_valid in self._padded_chunks(epoch, rows):
             yield self._collate(chunk), n_valid
 
     def device_batches(self, epoch: int = 0, device=None) -> Iterator[DetectionBatch]:

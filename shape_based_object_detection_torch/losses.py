@@ -9,19 +9,36 @@
 
 Both take a ``MatchResult`` with labels -1 ignore / 0 background / 1..C
 foreground, and return ``(total, metrics)`` with 0-d tensors.
+
+The number of positives that normalises both is the global batch's, as in
+the reference's one program over the global batch: under a process group
+(``group``) it is summed over the ranks, so each rank's loss is its share
+of the global loss and the ranks' gradients sum to the global gradient.
+Hard-negative mining counts per image, so it stays local.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from shape_based_object_detection_torch.config import LossConfig
 from shape_based_object_detection_torch.ops.matching import MatchResult
 
 Metrics = Dict[str, torch.Tensor]
+
+
+def global_count(count: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``count`` (a float 0-d tensor) summed over ``group``'s ranks (as it
+    is when there is no group)."""
+    if group is None:
+        return count
+    count = count.clone()
+    dist.all_reduce(count, group=group)
+    return count
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -40,10 +57,12 @@ def multibox_loss(
     reg_preds: torch.Tensor,  # (B, A, 4)
     match: MatchResult,
     cfg: LossConfig,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, Metrics]:
     cls_t, reg_t, pos = match.cls_targets, match.reg_targets, match.positive
     num_pos = pos.sum(1)  # (B,)
-    n_pos_total = num_pos.sum().clamp(min=1).float()
+    n_pos_global = global_count(num_pos.sum().float(), group)
+    n_pos_total = n_pos_global.clamp(min=1)
 
     loc = smooth_l1(reg_preds - reg_t, cfg.smooth_l1_beta).sum(-1)  # (B, A)
     loc_loss = torch.where(pos, loc, 0.0).sum() / n_pos_total
@@ -68,7 +87,7 @@ def multibox_loss(
         "loss": total,
         "loss_cls": conf_loss,
         "loss_box": loc_loss,
-        "num_pos": num_pos.sum().float(),
+        "num_pos": n_pos_global,
     }
 
 
@@ -88,10 +107,11 @@ def focal_loss(
     reg_preds: torch.Tensor,  # (B, A, 4)
     match: MatchResult,
     cfg: LossConfig,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, Metrics]:
     cls_t, reg_t, pos = match.cls_targets, match.reg_targets, match.positive
     num_classes = cls_logits.shape[-1]
-    num_pos = pos.sum().float().clamp(min=1.0)
+    num_pos = global_count(pos.sum().float(), group).clamp(min=1.0)
 
     # one-hot of label - 1 for foreground rows; background (0) and ignore
     # (-1) rows never equal a class id, so they are all zeros
@@ -113,10 +133,11 @@ def focal_loss(
 
 
 def detection_loss(cls_logits: torch.Tensor, reg_preds: torch.Tensor,
-                   match: MatchResult, cfg: LossConfig) -> Tuple[torch.Tensor, Metrics]:
+                   match: MatchResult, cfg: LossConfig,
+                   group: Optional[dist.ProcessGroup] = None) -> Tuple[torch.Tensor, Metrics]:
     """Dispatch on ``cfg.kind``: "multibox" (SSD) or "focal" (RetinaNet)."""
     if cfg.kind == "multibox":
-        return multibox_loss(cls_logits, reg_preds, match, cfg)
+        return multibox_loss(cls_logits, reg_preds, match, cfg, group)
     if cfg.kind == "focal":
-        return focal_loss(cls_logits, reg_preds, match, cfg)
+        return focal_loss(cls_logits, reg_preds, match, cfg, group)
     raise ValueError(f"unknown loss kind {cfg.kind!r}")

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -52,7 +53,14 @@ class BatchNorm(nn.Module):
     (``apply_batch_stats``), as the reference's statistics leave its step
     once through the aux output. A forward recomputed under remat finds
     ``pending`` set and leaves it. The state has no ``num_batches_tracked``,
-    so state dicts load strictly with either setting."""
+    so state dicts load strictly with either setting.
+
+    Under a process group (``group``, set by the data-parallel train step
+    through ``set_batch_stats_group``) the batch is the global batch, as in
+    the reference's one program: the per-channel sums of x and x^2 and the
+    count are summed over the ranks by an all-reduce that carries the
+    gradient, so every rank normalises, and keeps in ``pending``, the same
+    statistics. The means are the sums over the count in every case."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
                  train_bn: bool = False):
@@ -61,6 +69,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.train_bn = train_bn
         self.pending = None
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -77,13 +86,26 @@ class BatchNorm(nn.Module):
                  + self.bias.float().view(shape))
             return y.to(x.dtype)
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
+        sums = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count])
+        if self.group is not None:
+            sums = dist_nn.all_reduce(sums, group=self.group)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean.square(), min=0.0)
         if self.pending is None:
             self.pending = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
         return y.to(x.dtype)
+
+
+def set_batch_stats_group(module: nn.Module, group) -> None:
+    """Make every BatchNorm of ``module`` take its batch statistics over
+    ``group``'s global batch (None: the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def clear_batch_stats(module: nn.Module) -> None:

@@ -1,0 +1,280 @@
+"""Data parallelism over a process group (port of the JAX package's
+``parallel/mesh.py``).
+
+The reference lays a ``jax.sharding.Mesh`` over every device and lets XLA
+insert the gradient all-reduce. The port runs one process per card, as
+PyTorch does (``torchrun --nproc_per_node``), joined in a
+``torch.distributed`` process group: NCCL on the card, gloo on the CPU.
+A ``Mesh`` records the group, this process's rank, the world size and its
+device. Each rank loads its rows of the global batch (the reference's
+``batch_sharding``: the global batch is the ranks' batches in rank order,
+as ``jax.make_array_from_process_local_data`` assembles it), every rank
+starts from rank 0's state (``broadcast_state``, the reference's
+``replicated_sharding``), and the train step all-reduces what the
+reference's single program sums over the global batch: the gradients, the
+number of positives and BatchNorm's batch statistics.
+
+The reference's "model" axis (``spatial_image_sharding``, config #5's image
+rows split across devices) is not ported: ``ROADMAP.md`` lists it first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Iterable, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from shape_based_object_detection_torch.config import MeshConfig
+from shape_based_object_detection_torch.utils.device import resolve_device
+
+DEFAULT_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One process's place in the data-parallel group: ``group`` is None in
+    a single process (no collective runs), else the process group, in which
+    this process is ``rank`` of ``world`` and computes on ``device``."""
+
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    world: int
+    device: torch.device
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    def rows(self, global_batch: int) -> slice:
+        """This rank's rows of a global batch (the reference's
+        ``batch_sharding``): the ranks' slices in rank order."""
+        per_rank = make_mesh_for_batch(global_batch, self)
+        return slice(self.rank * per_rank, (self.rank + 1) * per_rank)
+
+
+def single_process(device=None) -> Mesh:
+    """The mesh of a process that trains alone: no group, rank 0 of 1."""
+    return Mesh(None, 0, 1, resolve_device(device))
+
+
+def _local_rank(process_id: int) -> int:
+    """The card of this process: torchrun's LOCAL_RANK, else the process id
+    modulo the cards of this host (processes laid out host by host)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return process_id % max(1, torch.cuda.device_count())
+
+
+def initialize_multihost(coordinator: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None, device=None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """Join the data-parallel group and return this process's ``Mesh``.
+
+    With ``num_processes > 1`` the group meets at ``tcp://{coordinator}``
+    (``host:port``; process 0 listens there) as ``process_id``. Without it,
+    under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` in the environment), the
+    group forms from torchrun's environment, at any world size, 1 included.
+    Otherwise the process trains alone and no group forms.
+
+    On the card (``device`` None or "cuda") the backend is NCCL and each
+    process takes card ``LOCAL_RANK`` (else ``process_id`` modulo the
+    host's cards) before the group forms; with ``device="cpu"`` it is gloo.
+    A rank waits at most ``timeout_s`` for the others, to form the group
+    and in each collective; past it the call raises. A group that cannot
+    form raises: nothing falls back to a single process."""
+    from_flags = num_processes is not None and num_processes > 1
+    from_env = not from_flags and "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if not (from_flags or from_env):
+        return single_process(device)
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized in this process")
+    dev = torch.device("cuda" if device is None else device)
+    if from_flags:
+        if not coordinator:
+            raise ValueError("num_processes > 1 needs a coordinator address host:port")
+        if process_id is None or not 0 <= process_id < num_processes:
+            raise ValueError(f"process_id {process_id} is not in [0, {num_processes})")
+        rank, world = process_id, num_processes
+        init = f"tcp://{coordinator}"
+    else:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        init = "env://"
+    if dev.type == "cuda":
+        resolve_device("cuda")  # raises without a card
+        torch.cuda.set_device(_local_rank(rank))
+        dev = resolve_device("cuda")
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), dev)
+
+
+def shutdown(mesh: Mesh) -> None:
+    """Leave the group ``initialize_multihost`` formed (no-op alone)."""
+    if mesh.distributed and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def make_mesh(device=None, cfg: MeshConfig = MeshConfig()) -> Mesh:
+    """The mesh of this process: the initialized default group, if any,
+    else a single process. ``model_parallelism > 1`` is not ported."""
+    if max(1, cfg.model_parallelism) > 1:
+        _no_model_axis(cfg.model_parallelism)
+    if not dist.is_initialized():
+        return single_process(device)
+    return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(),
+                resolve_device(device))
+
+
+def make_mesh_for_batch(global_batch: int, mesh: Optional[Mesh] = None,
+                        cfg: MeshConfig = MeshConfig()) -> int:
+    """The per-rank batch of ``global_batch`` over ``mesh`` (default: this
+    process's). Raises when the model axis does not divide the world (the
+    reference floors nothing either), when ``model_parallelism > 1`` (the
+    model axis is not ported), and when the world does not divide the
+    global batch: the group cannot shrink across processes."""
+    mesh = make_mesh() if mesh is None else mesh
+    mp = max(1, cfg.model_parallelism)
+    if mesh.world % mp:
+        raise ValueError(f"model_parallelism={mp} does not divide the world size {mesh.world}")
+    if mp > 1:
+        _no_model_axis(mp)
+    if global_batch % mesh.world:
+        raise ValueError(
+            f"global batch {global_batch} is not divisible by the world size "
+            f"{mesh.world}; adjust data.batch_size — the group cannot be shrunk "
+            "across processes")
+    return global_batch // mesh.world
+
+
+def _no_model_axis(mp: int):
+    raise NotImplementedError(
+        f"model_parallelism={mp}: the model axis (image rows split across ranks) "
+        "is not ported yet (ROADMAP.md, modules still to port, item 1)")
+
+
+def spatial_image_sharding(mesh: Mesh, cfg: MeshConfig = MeshConfig()):
+    """The reference splits image rows over its model axis (config #5's
+    1024 px lever, GSPMD's halo exchange); the port has no counterpart
+    yet: this raises."""
+    raise NotImplementedError(
+        "spatial_image_sharding (image rows over the model axis) is not ported "
+        "yet (ROADMAP.md, modules still to port, item 1)")
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+
+def _memory_order(t: torch.Tensor) -> List[int]:
+    """t's dimensions from the largest stride to the smallest: for a dense
+    tensor (contiguous, channels_last, ...) ``t.permute(order)`` is
+    contiguous, so it flattens without a copy."""
+    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
+
+
+def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Sum ``tensors`` over the group, in place, as one all-reduce of one
+    flat buffer per dtype (a single process: nothing to do). Each tensor is
+    packed in its own memory order and unpacked by one multi-tensor copy, so
+    the packing costs two copies of the bytes and a few launches."""
+    if not mesh.distributed or not tensors:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        orders = [_memory_order(t) for t in group]
+        flat = torch.cat([t.permute(o).reshape(-1) for t, o in zip(group, orders)])
+        dist.all_reduce(flat, group=mesh.group)
+        parts, offset = [], 0
+        for t, o in zip(group, orders):
+            shape = [t.shape[d] for d in o]
+            back = sorted(range(t.dim()), key=o.__getitem__)
+            parts.append(flat[offset:offset + t.numel()].view(shape).permute(back))
+            offset += t.numel()
+        torch._foreach_copy_(group, parts)
+
+
+def all_gather_rows(tensors: Iterable[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """Each tensor's rows from every rank, concatenated in rank order: the
+    reference's replicated output (``out_sharding``). Every rank passes
+    tensors of the same shapes; bool tensors travel as uint8."""
+    tensors = list(tensors)
+    if not mesh.distributed:
+        return tensors
+    out = []
+    for t in tensors:
+        x = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(parts, x, group=mesh.group)
+        y = torch.cat(parts)
+        out.append(y.bool() if t.dtype == torch.bool else y)
+    return out
+
+
+def all_gather_arrays(arrays: Iterable[np.ndarray], mesh: Mesh) -> List[np.ndarray]:
+    """``all_gather_rows`` of host arrays (through the mesh's device, as
+    NCCL gathers only tensors on the card)."""
+    arrays = list(arrays)
+    if not mesh.distributed:
+        return arrays
+    gathered = all_gather_rows((torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+                                for a in arrays), mesh)
+    return [g.cpu().numpy() for g in gathered]
+
+
+def broadcast_(tensors: Iterable[torch.Tensor], mesh: Mesh, src: int = 0) -> None:
+    """Overwrite ``tensors`` in place with rank ``src``'s."""
+    if not mesh.distributed:
+        return
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src, group=mesh.group)
+
+
+def broadcast_int(value: int, mesh: Mesh, src: int = 0) -> int:
+    """Rank ``src``'s ``value`` on every rank."""
+    if not mesh.distributed:
+        return int(value)
+    t = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(t, src, group=mesh.group)
+    return int(t.item())
+
+
+def barrier(mesh: Mesh) -> None:
+    if mesh.distributed:
+        kw = {"device_ids": [mesh.device.index]} if mesh.device.type == "cuda" else {}
+        dist.barrier(group=mesh.group, **kw)
+
+
+def broadcast_state(state, mesh: Mesh, src: int = 0):
+    """Every rank's train state made rank ``src``'s, in place: parameters,
+    buffers, optimizer state, EMA, step and the augmentation generator's
+    state (the reference's ``replicated_sharding`` of the state). Returns
+    ``state``."""
+    if not mesh.distributed:
+        return state
+    opt = state.opt_state
+    tensors = list(state.module.parameters()) + list(state.module.buffers())
+    for key in ("trace", "mu", "nu", "acc"):
+        tensors += getattr(opt, key) or []
+    tensors += list((state.ema or {}).values())
+    broadcast_(tensors, mesh, src)
+    state.step = broadcast_int(state.step, mesh, src)
+    opt.count = broadcast_int(opt.count, mesh, src)
+    opt.mini_step = broadcast_int(opt.mini_step, mesh, src)
+    gen = state.generator.get_state().to(mesh.device)
+    dist.broadcast(gen, src, group=mesh.group)
+    state.generator.set_state(gen.cpu())
+    return state

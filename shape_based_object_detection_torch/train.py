@@ -21,6 +21,15 @@ the FPN and each head application; the VGG stages and the extras);
 reference's legacy path does. With ``model.train_bn`` the training forward
 normalises BatchNorm with batch statistics, and the running statistics
 move once per step, after backward, however often remat recomputed them.
+
+Given a ``parallel.Mesh`` with a process group, the step is data-parallel:
+each rank feeds its rows of the global batch and the step computes what a
+single process computes on the whole global batch, as the reference's
+sharded step does. The augmentation draws for the global batch, the loss
+and BatchNorm take their counts and statistics over the group, and after
+backward one all-reduce of one flat buffer sums the gradients (and the
+loss terms) before clipping, the optimizer and the EMA, which then run
+alike on every rank.
 """
 
 from __future__ import annotations
@@ -36,11 +45,14 @@ from shape_based_object_detection_torch.config import ExperimentConfig, TrainCon
 from shape_based_object_detection_torch.data.augment import augment_batch
 from shape_based_object_detection_torch.losses import detection_loss
 from shape_based_object_detection_torch.models.resnet import (
-    apply_batch_stats, clear_batch_stats, run_segment,
+    apply_batch_stats, clear_batch_stats, run_segment, set_batch_stats_group,
 )
 from shape_based_object_detection_torch.models.retinanet import conv_precision
 from shape_based_object_detection_torch.ops.boxes import true_div
 from shape_based_object_detection_torch.ops.matching import match_batch
+from shape_based_object_detection_torch.parallel.mesh import (
+    Mesh, all_gather_rows, all_reduce_, single_process,
+)
 from shape_based_object_detection_torch.utils import image as image_lib
 from shape_based_object_detection_torch.utils.device import resolve_device
 
@@ -257,12 +269,14 @@ def _autocast(cfg: ExperimentConfig, device: torch.device):
                           enabled=cfg.model.dtype == "bfloat16")
 
 
-def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig):
+def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
+                 group=None):
     """``loss_fn(images_nchw, boxes, labels, valid) -> (loss, metrics)``,
     the differentiable core of the train step: the training forward
     (``train=True``: batch statistics in BatchNorm where ``train_bn`` is
     set), then matching and the loss. ``train.remat`` on a module built
-    without ``model.remat`` checkpoints the whole forward."""
+    without ``model.remat`` checkpoints the whole forward. Under a process
+    ``group`` the loss is this rank's share of the global batch's."""
     variances = cfg.model.anchors.variances
     device = anchors.device
     whole_remat = cfg.train.remat and not module.cfg.remat
@@ -276,16 +290,20 @@ def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig
         with torch.no_grad():
             match = match_batch(anchors, boxes, labels, valid, cfg.match, variances)
         return detection_loss(cls_logits.float(), box_offsets.float(), match,
-                              cfg.loss)
+                              cfg.loss, group)
 
     return loss_fn
 
 
+# the loss terms a rank computes as its share of the global batch's
+SUMMED_METRICS = ("loss", "loss_cls", "loss_box")
+
+
 def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
                      cfg: ExperimentConfig, state: TrainState, images, boxes,
-                     labels, valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """forward + backward -> BatchNorm statistics -> optimizer -> EMA: the
-    shared tail of the step."""
+                     labels, valid, mesh: Mesh) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """forward + backward -> BatchNorm statistics -> the group's sum of the
+    gradients -> optimizer -> EMA: the shared tail of the step."""
     params = list(state.module.parameters())
     for p in params:
         p.grad = None
@@ -302,6 +320,9 @@ def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
     apply_batch_stats(state.module)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     metrics = {k: v.detach() for k, v in metrics.items()}
+    # one coalesced all-reduce: the ranks' gradients of their shares sum to
+    # the global batch's gradient, their loss terms to its loss
+    all_reduce_(grads + [metrics[k] for k in SUMMED_METRICS], mesh)
     metrics["grad_norm"] = global_norm(grads)
     applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
     d = cfg.train.ema_decay
@@ -322,31 +343,45 @@ def _batch_on(batch: Batch, dev: torch.device):
                  for k in ("images", "boxes", "labels", "valid"))
 
 
+def _step_parts(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
+                device, mesh: Optional[Mesh]):
+    """The device, mesh, optimizer, loss function and decay mask of a train
+    step; BatchNorm takes its statistics over the mesh's group."""
+    if mesh is None:
+        mesh = single_process(device)
+    dev = _on_device(module, anchors, mesh.device if device is None else device)
+    if dev != mesh.device:
+        raise ValueError(f"the step's device {dev} is not its mesh's {mesh.device}")
+    set_batch_stats_group(module, mesh.group)
+    return (dev, mesh, make_optimizer(cfg.train), make_loss_fn(module, anchors, cfg, mesh.group),
+            list(decay_mask(module).values()))
+
+
 def make_train_step(module: nn.Module, anchors: torch.Tensor,
-                    cfg: ExperimentConfig, augment: bool = True, device=None):
+                    cfg: ExperimentConfig, augment: bool = True, device=None,
+                    mesh: Optional[Mesh] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: images (B, S, S, 3) uint8, boxes (B, G, 4) normalized xyxy,
     labels (B, G) int32 (1-based), valid (B, G) bool; tensors already on the
     device are used in place. The state is updated in place and returned;
     the metrics are 0-d tensors on the device (reading one waits for the
-    step)."""
-    dev = _on_device(module, anchors, device)
-    opt = make_optimizer(cfg.train)
-    loss_fn = make_loss_fn(module, anchors, cfg)
-    mask = list(decay_mask(module).values())
+    step). With a ``mesh`` whose group is set, ``batch`` is this rank's
+    rows of the global batch (``mesh.rows``), every rank calls the step,
+    and the metrics are the global batch's."""
+    dev, mesh, opt, loss_fn, mask = _step_parts(module, anchors, cfg, device, mesh)
 
     def train_step(state: TrainState, batch: Batch):
         images, boxes, labels, valid = _batch_on(batch, dev)
         if augment:
             images, boxes, labels, valid = augment_batch(
                 state.generator, images, boxes, labels, valid, cfg.data,
-                cfg.model.image_size)
+                cfg.model.image_size, mesh.rank, mesh.world)
         else:
             images = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
         return _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
-                                labels, valid)
+                                labels, valid, mesh)
 
     return train_step
 
@@ -364,7 +399,8 @@ class Carry(NamedTuple):
 
 
 def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
-                              cfg: ExperimentConfig, device=None):
+                              cfg: ExperimentConfig, device=None,
+                              mesh: Optional[Mesh] = None):
     """The software-pipelined step: augmentation runs one batch ahead.
 
     Returns ``(prime, step)``:
@@ -379,23 +415,23 @@ def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
     second CUDA stream: every draw is made there, in that order, and the
     main stream waits on the carry's event before it consumes it; the
     tensors that cross streams are ``record_stream``-ed so the caching
-    allocator does not hand their memory out early."""
-    dev = _on_device(module, anchors, device)
-    opt = make_optimizer(cfg.train)
-    loss_fn = make_loss_fn(module, anchors, cfg)
-    mask = list(decay_mask(module).values())
+    allocator does not hand their memory out early. A ``mesh`` as
+    ``make_train_step``'s."""
+    dev, mesh, opt, loss_fn, mask = _step_parts(module, anchors, cfg, device, mesh)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def augment(state: TrainState, batch: Batch) -> Carry:
         if side is None:
             return Carry(*augment_batch(state.generator, *_batch_on(batch, dev),
-                                        cfg.data, cfg.model.image_size))
+                                        cfg.data, cfg.model.image_size, mesh.rank,
+                                        mesh.world))
         main = torch.cuda.current_stream(dev)
         # the batch may have been written on the main stream (an upload)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             raw = _batch_on(batch, dev)
-            out = augment_batch(state.generator, *raw, cfg.data, cfg.model.image_size)
+            out = augment_batch(state.generator, *raw, cfg.data, cfg.model.image_size,
+                                mesh.rank, mesh.world)
             ready = torch.cuda.Event()
             ready.record(side)
         for t in raw:
@@ -417,21 +453,26 @@ def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
             torch.cuda.current_stream(dev).wait_event(ready)
         x = images.permute(0, 3, 1, 2)
         state, metrics = _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
-                                          labels, valid)
+                                          labels, valid, mesh)
         return state, new_carry, metrics
 
     return prime, step
 
 
 def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
-                   use_ema: bool = False, device=None):
+                   use_ema: bool = False, device=None, mesh: Optional[Mesh] = None):
     """Returns ``eval_step(state, images) -> Detections``: forward with the
     state's parameters (or its EMA) and postprocess, for validation.
     BatchNorm normalises with its running statistics (the module's buffers,
-    with the EMA too)."""
+    with the EMA too). With a ``mesh`` whose group is set, ``images`` are
+    this rank's rows and every rank gets the global batch's detections in
+    rank order (the reference's replicated ``out_sharding``)."""
     from shape_based_object_detection_torch.detection import postprocess
+    from shape_based_object_detection_torch.ops.nms import Detections
 
-    dev = _on_device(module, anchors, device)
+    if mesh is None:
+        mesh = single_process(device)
+    dev = _on_device(module, anchors, mesh.device if device is None else device)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images):
@@ -449,7 +490,7 @@ def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConf
                     state.module, weights, (x,))
             else:
                 cls_logits, box_offsets = state.module(x)
-        return postprocess(cls_logits.float(), box_offsets.float(), anchors,
-                           cfg.model)
+        det = postprocess(cls_logits.float(), box_offsets.float(), anchors, cfg.model)
+        return Detections(*all_gather_rows(det, mesh)) if mesh.distributed else det
 
     return eval_step

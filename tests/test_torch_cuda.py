@@ -597,3 +597,77 @@ def test_int8_tiers_on_the_card(mode, static, tmp_path):
             assert torch.allclose(a, b, rtol=0, atol=1e-5)
         else:
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,train_bn", [("retinanet", True), ("ssd", False)])
+def test_nccl_world_one_step_bit_equal_to_plain(tmp_path, family, train_bn):
+    """A data-parallel step in an NCCL group of one (the all-reduces of the
+    gradients, the positives and BatchNorm's statistics run, over one rank)
+    equals the plain step bit for bit, two steps with augmentation, with
+    cuDNN's deterministic algorithms; K2 once per step."""
+    _cuda()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from shape_based_object_detection_torch import config, train
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching_cuda
+    from shape_based_object_detection_torch.parallel import make_mesh
+
+    cfg = config.get_config(f"tiny_{family}")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, train_bn=train_bn,
+                                                             remat=True))
+    batches = [_tiny_batch(cfg, 30 + i) for i in range(2)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh()
+        assert mesh.distributed and mesh.world == 1
+        runs = {}
+        for m in (None, mesh):
+            module, anchors = build_model(cfg.model, train=True,
+                                          generator=torch.Generator().manual_seed(5))
+            state = train.create_train_state(module, cfg)
+            step = train.make_train_step(module, anchors, cfg, mesh=m)
+            before = matching_cuda.launches
+            metrics = [{k: v.clone() for k, v in step(state, b)[1].items()} for b in batches]
+            assert matching_cuda.launches == before + 2
+            runs[m is None] = (metrics, module.state_dict())
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    (dp_metrics, dp_state), (metrics, state) = runs[False], runs[True]
+    for got, want in zip(dp_metrics, metrics):
+        assert all(torch.equal(got[k], want[k]) for k in want), (got, want)
+    assert all(torch.equal(dp_state[k], v) for k, v in state.items())
+
+
+@pytest.mark.cuda
+def test_device_cache_loader_on_the_card_equals_cache_loader(tmp_path):
+    """The cache staged on the card: every batch gathered there equals
+    CacheLoader's host batch, and batches_padded's images stay on the card
+    with the host annotations and the tail's n_valid."""
+    _cuda()
+    from shape_based_object_detection_torch.data.cache import (
+        CacheLoader, DeviceCacheLoader, MemmapDetection, build_cache,
+    )
+    from shape_based_object_detection_torch.data.synthetic import SyntheticDetection
+
+    build_cache(SyntheticDetection(size=64, num_images=10), str(tmp_path), max_boxes=6)
+    mm = MemmapDetection(str(tmp_path))
+    host = CacheLoader(mm, 4, 6, seed=3)
+    dev = DeviceCacheLoader(mm, 4, 6, seed=3)
+    pairs = list(zip(dev.device_batches(1), host.batches(1), strict=True))
+    assert len(pairs) == 2
+    for d, h in pairs:
+        for a, b in zip(d, h):
+            assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)
+    padded = list(dev.batches_padded())
+    assert [n for _, n in padded] == [4, 4, 2]
+    for (d, n), (h, m) in zip(padded, host.batches_padded()):
+        assert d.images.is_cuda and np.array_equal(d.images.cpu().numpy(), h.images)
+        assert np.array_equal(d.boxes, h.boxes) and n == m

@@ -49,15 +49,15 @@ def test_no_prebuilt_library_is_loaded():
 
 
 def test_modules_import_without_jax_or_nvcc():
-    """In a fresh interpreter with jax and flax made unimportable and no
-    nvcc on PATH, every module of the port imports, and none of them pulls
-    in the JAX package."""
+    """In a fresh interpreter with jax, flax and grain made unimportable and
+    no nvcc on PATH, every module of the port imports, and none of them
+    pulls in the JAX package."""
     names = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
                    for p in PORT.rglob("*.py"))
     names = [n[: -len(".__init__")] if n.endswith(".__init__") else n for n in names]
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'shape_based_object_detection_tpu'):\n"
+        "for m in ('jax', 'flax', 'grain', 'shape_based_object_detection_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for n in {names!r}:\n"
@@ -245,3 +245,25 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
     served, _ = build_model(bf16, device="cpu")
     with pytest.raises(ValueError, match="train=True"):
         train.create_train_state(served, dataclasses.replace(cfg, model=bf16), device="cpu")
+
+
+def test_data_parallel_and_device_cache_raise_without_cuda(monkeypatch, tmp_path):
+    """Under torchrun's environment the group forms on the card (NCCL) by
+    default, and the device-staged cache stages there: without a card both
+    raise; neither falls back to the CPU."""
+    from shape_based_object_detection_torch.data.cache import (
+        DeviceCacheLoader, MemmapDetection, build_cache,
+    )
+    from shape_based_object_detection_torch.data.synthetic import SyntheticDetection
+    from shape_based_object_detection_torch.parallel import initialize_multihost
+
+    _no_cuda(monkeypatch)
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost()
+    build_cache(SyntheticDetection(size=32, num_images=4, num_classes=4),
+                str(tmp_path / "c"), max_boxes=4, workers=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceCacheLoader(MemmapDetection(str(tmp_path / "c")), 2, 4)
