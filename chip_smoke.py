@@ -150,6 +150,23 @@ parallelism:
      equal to eval_cli's without a group; two ranks sharing the card over
      gloo, b2 each, against one process's step on the global b4.
 
+The group ``spatial`` drives the model axis (image rows split across the
+ranks of a model group, halo exchanges in every convolution):
+
+ 28. config #5's model as the preset sets it (R101-FPN at 1024 px, focal,
+     the whole-forward train.remat), float32 with TF32 off and cuDNN
+     deterministic, b2: two train steps and a detect (threshold 0) in this
+     process, then on 1 data x 2 model gloo ranks sharing the card (NCCL,
+     one rank per card, too where the machine has two cards): loss within
+     1e-5 relative, grad_norm 1e-4, parameters 2e-5, detections at the
+     reference's bounds; each rank's peak memory and step ms beside this
+     process's, the halo exchanges of one forward and their bytes; K2 once
+     per step and K1 once per detect on every rank;
+ 29. K1 bit-equal to its plain version on rank 0's candidates (2, 1000,
+     100) and K2 on the step's GT against the 196,416 anchors, both timed;
+ 30. R50-FPN-512 b4 on 2 data x 2 model gloo ranks: the same checks, with
+     a data group and a model group of two ranks each.
+
 Every process the run starts ends before it does: the script is the child
 subreaper of its descendants (a worker whose parent exits is re-parented to
 it), and after the last phase, or a failed one, it stops multiprocessing's
@@ -164,6 +181,7 @@ without printing a result when there is no CUDA device or a phase fails.
     python3 chip_smoke.py --only serve   # one group, no result line
     python3 chip_smoke.py --only int8    # the int8 tiers and the artifact
     python3 chip_smoke.py --only data,dist   # the loaders, data parallelism
+    python3 chip_smoke.py --only spatial     # the model axis
 """
 
 from __future__ import annotations
@@ -3827,7 +3845,316 @@ def phase_dist_gloo(torch, config, train, build_model, workdir):
     return {f"dist_gloo_worst_rel_{k}": v for k, v in worst.items()}
 
 
-PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist")
+# the spatial group: checked steps, then timed steps, of each run
+SPATIAL_STEPS = 2
+SPATIAL_TIMED = 3
+
+
+def spatial_config(config, preset, batch, mp, **model_changes):
+    """``preset``'s config (config #5: R101-FPN at 1024 px, focal, the
+    whole-forward ``train.remat``) in float32 with TF32 off, warmup 1 so
+    that step 2 moves the parameters, at global ``batch`` with a model axis
+    of ``mp`` ranks."""
+    cfg = config.get_config(preset)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32", precision="highest",
+                                       **model_changes),
+        data=dataclasses.replace(cfg.data, batch_size=batch),
+        train=dataclasses.replace(cfg.train, warmup_steps=1),
+        mesh=dataclasses.replace(cfg.mesh, model_parallelism=mp))
+
+
+def spatial_widen(module):
+    """Scores away from the 0.01 prior, so detections separate."""
+    module.cls_head.predict.weight.mul_(100.0)
+
+
+def spatial_run(torch, plan, mesh, device):
+    """One process's part of a spatial run (``mesh`` None: the unsplit
+    reference, alone): SPATIAL_STEPS train steps with cuDNN's deterministic
+    algorithms (their metrics, K2 launches and peak memory), SPATIAL_TIMED
+    timed steps, the halo exchanges of one forward, then detect on the
+    images with its K1 launches, gathered over the data axis."""
+    from shape_based_object_detection_torch import train
+    from shape_based_object_detection_torch.detection import make_detect_fn, select_candidates
+    from shape_based_object_detection_torch.models.factory import build_model
+    from shape_based_object_detection_torch.ops import matching_cuda, nms_cuda
+    from shape_based_object_detection_torch.parallel.mesh import all_gather_rows
+    from shape_based_object_detection_torch.utils import image as image_lib
+
+    cfg, batch = plan["cfg"], plan["batch"]
+    b = cfg.data.batch_size
+    rows = slice(None) if mesh is None else mesh.rows(b)
+    local = {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
+    module, anchors = build_model(cfg.model, device=device, train=True,
+                                  generator=torch.Generator().manual_seed(plan["seed"]))
+    state = train.create_train_state(module, cfg, device=device)
+    step = train.make_train_step(module, anchors, cfg, augment=False, device=device, mesh=mesh)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        matching_cuda.launches = 0
+        metrics = []
+        for _ in range(SPATIAL_STEPS):
+            state, m = step(state, local)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize(device)
+        out = {"metrics": metrics, "k2": matching_cuda.launches,
+               "peak": torch.cuda.max_memory_allocated(device),
+               "state": {k: v.cpu() for k, v in module.state_dict().items()}
+               if plan["keep_state"] else None,
+               "sums": [float(v.double().sum()) for v in module.state_dict().values()]}
+        times = []
+        for _ in range(SPATIAL_TIMED):
+            t = time.perf_counter()
+            step(state, local)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t) * 1e3)
+        out["step_ms"] = times
+        shard = module.row_shard
+        x = image_lib.normalize_images(local["images"]).permute(0, 3, 1, 2)
+        if shard is not None:
+            shard.reset_counts()
+            with torch.no_grad():
+                module(shard.split(x))
+            out["halo"] = (shard.exchanges, shard.halo_bytes, shard.moved_bytes)
+        del module, state, step
+        dcfg = plan["detect_cfg"]
+        module, anchors = build_model(dcfg.model, device=device,
+                                      generator=torch.Generator().manual_seed(plan["seed"]))
+        with torch.no_grad():
+            spatial_widen(module)
+        detect = make_detect_fn(module, anchors, dcfg.model, dcfg.data, device, mesh)
+        images = torch.from_numpy(plan["images"][rows]).to(device)
+        nms_cuda.launches = 0
+        det = detect(images)
+        torch.cuda.synchronize(device)
+        out["k1"] = nms_cuda.launches
+        if mesh is not None:
+            det = all_gather_rows(det, mesh)
+        out["det"] = [t.cpu() for t in det]
+        with torch.inference_mode():
+            x = image_lib.normalize_images(images).permute(0, 3, 1, 2)
+            shard = module.row_shard
+            out["cands"] = [t.cpu() for t in select_candidates(
+                *module(x if shard is None else shard.split(x)), anchors, dcfg.model)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def spatial_rank(rank, world, backend, store, plan_path, out_path):
+    """One of ``world`` ranks of a spatial run: gloo with every rank on
+    card 0 (NCCL refuses two ranks on one card), or NCCL with rank r on
+    card r; ``spatial_run`` on the plan's mesh, its results to
+    ``out_path`` (torch.save). Run as ``python3 -c "import sys, chip_smoke;
+    chip_smoke.spatial_rank(*sys.argv[1:])" RANK WORLD BACKEND STORE PLAN
+    OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    from shape_based_object_detection_torch.parallel import make_mesh
+
+    rank, world = int(rank), int(world)
+    plan = torch.load(plan_path, weights_only=False)
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                            world_size=world, **kw)
+    try:
+        mesh = make_mesh(device, plan["cfg"].mesh)
+        out = spatial_run(torch, dict(plan, keep_state=plan["keep_state"] and rank == 0),
+                          mesh, device)
+        out["layout"] = (mesh.data_index, mesh.model_index, mesh.data_size,
+                         mesh.data_group is not None)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_path)
+
+
+def spatial_ranks(plan, world, backend, workdir, tag):
+    """``world`` ``spatial_rank`` processes on ``plan``: their results in
+    rank order. A rank that fails, or runs past 600 s, fails the run."""
+    import torch
+
+    plan_path = os.path.join(workdir, f"{tag}_plan.pt")
+    torch.save(plan, plan_path)
+    store = os.path.join(workdir, f"{tag}_store")
+    outs = [os.path.join(workdir, f"{tag}_rank{r}.pt") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.spatial_rank(*sys.argv[1:])",
+         str(r), str(world), backend, store, plan_path, outs[r]], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode:
+            raise RuntimeError(f"{tag}: {backend} rank {r} exited {p.returncode}: "
+                               f"{text[-3000:]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def spatial_compare(torch, split, alone, name, backend, check_state=True):
+    """The split ranks against the unsplit process: loss within 1e-5
+    relative, grad_norm 1e-4, the parameters after the steps within 2e-5,
+    every rank's parameters alike, the gathered detections at the
+    reference's bounds (valid and labels equal, scores rtol 1e-5 atol 1e-7,
+    boxes rtol 1e-5 atol 1e-6). Logs each rank's peak memory and step time
+    beside the unsplit process's. Returns the worst differences."""
+    worst = {}
+    for r in split:
+        for g, w in zip(r["metrics"], alone["metrics"]):
+            for k in ("loss", "grad_norm", "num_pos", "loss_cls", "loss_box"):
+                worst[k] = max(worst.get(k, 0.0), abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+    state = split[0]["state"]
+    worst["params"] = (max(float((state[k] - v).abs().max()) for k, v in alone["state"].items())
+                       if check_state else None)
+    alike = all(r["sums"] == split[0]["sums"] for r in split)
+    det_ok = True
+    for r in split:
+        g, w = r["det"], alone["det"]
+        det_ok &= (torch.equal(g[3], w[3]) and torch.equal(g[2], w[2])
+                   and bool(torch.isclose(g[1], w[1], rtol=1e-5, atol=1e-7).all())
+                   and bool(torch.isclose(g[0], w[0], rtol=1e-5, atol=1e-6).all()))
+    n_det = int(alone["det"][3].sum())
+    smi = nvidia_smi_line()
+    peaks = ", ".join(f"rank {i} {r['peak'] / 2**30:.3f} GiB" for i, r in enumerate(split))
+    times = ", ".join(f"rank {i} {float(np.median(r['step_ms'])):.1f}"
+                      for i, r in enumerate(split))
+    log(f"[spatial] {name} over {backend}: {len(split)} ranks (data index, model index, "
+        f"data size, data group): {[r['layout'] for r in split]}; {SPATIAL_STEPS} steps vs "
+        f"one process on the global batch: worst relative differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items() if k != "params")
+        + (f", parameters max |err| {worst['params']:.2e}" if check_state else "")
+        + f" (bounds: loss 1e-5, grad_norm 1e-4, parameters 2e-5); ranks alike: {alike}; "
+        f"detect ({n_det} detections, threshold 0) equal at the reference's bounds: {det_ok}; "
+        f"K2 launches {[r['k2'] for r in split]} in {SPATIAL_STEPS} steps, K1 "
+        f"{[r['k1'] for r in split]} in one detect")
+    log(f"[spatial] {name} peak memory (torch.cuda.max_memory_allocated over the checked "
+        f"steps): {peaks}; unsplit {alone['peak'] / 2**30:.3f} GiB ({smi})")
+    log(f"[spatial] {name} step ms (host clock to a synchronize, median of {SPATIAL_TIMED}; "
+        f"{backend}{' through the host, not NCCL' if backend == 'gloo' else ''}): {times}; "
+        f"unsplit {float(np.median(alone['step_ms'])):.1f} ({smi})")
+    images = alone["det"][0].shape[0] // split[0]["layout"][2]
+    log(f"[spatial] {name} halo exchanges in one forward of a data index's {images} images: "
+        + ", ".join(f"rank {i} {r['halo'][0]} exchanges, {r['halo'][1]} bytes of "
+                    f"neighbours' rows received, {r['halo'][2]} bytes brought in by the "
+                    f"all-gathers" for i, r in enumerate(split)))
+    ok = (worst["loss"] <= 1e-5 and worst["grad_norm"] <= 1e-4 and alike and det_ok
+          and (not check_state or worst["params"] <= 2e-5)
+          and all(r["k2"] == SPATIAL_STEPS and r["k1"] == 1 for r in split)
+          and n_det > 0)
+    if not ok:
+        raise RuntimeError(f"{name}: the split run differs from the unsplit one: {worst}, "
+                           f"alike {alike}, detect {det_ok}")
+    return worst
+
+
+def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir):
+    """The model axis (image rows split across ranks) on the card: config
+    #5's model (R101-FPN, 1024 px, float32 with TF32 off, focal, the
+    whole-forward train.remat) on 1 data x 2 model ranks over gloo sharing
+    the card, b2: its train steps and detect against one process's; where
+    the machine has two or more cards the same over NCCL; then 2 data x 2
+    model ranks (R50-FPN-512, b4); K1 and K2 bit-equal to their plain
+    versions on this path's candidates and GT, and their times there."""
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+    from tests.torch_kernel_cases import match_check
+
+    out, k1, k2 = {}, {}, {}
+    cfg5 = spatial_config(config, "config5_multihost_dp_train", 2, 2)
+    plan = {"cfg": cfg5, "seed": 9, "keep_state": True,
+            "batch": train_batch(np.random.default_rng(90), 2, size=1024, g=100),
+            "images": np.random.default_rng(91).integers(0, 256, (2, 1024, 1024, 3),
+                                                           dtype=np.uint8),
+            "detect_cfg": dataclasses.replace(cfg5, model=dataclasses.replace(
+                cfg5.model, detect=dataclasses.replace(cfg5.model.detect,
+                                                       score_threshold=0.0)))}
+    t = time.perf_counter()
+    alone = spatial_run(torch, plan, None, torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    log(f"[spatial] config #5 (R101-FPN 1024 px fp32, TF32 off, train.remat, focal, b2) in one "
+        f"process: loss {alone['metrics'][-1]['loss']:.6f}, {time.perf_counter() - t:.1f} s")
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    if len(backends) == 1:
+        log(f"[spatial] NCCL: not run, the machine has {torch.cuda.device_count()} card "
+            "(NCCL takes one rank per card)")
+    for backend in backends:
+        t = time.perf_counter()
+        split = spatial_ranks(plan, 2, backend, workdir, f"spatial_{backend}")
+        worst = spatial_compare(torch, split, alone, "config #5 on 1 data x 2 model", backend)
+        log(f"[spatial] the {backend} run took {time.perf_counter() - t:.1f} s")
+        out.update({f"spatial_{backend}_worst_rel_{k}": v for k, v in worst.items()})
+        out.update({f"spatial_{backend}_rank{i}_peak_bytes": r["peak"]
+                    for i, r in enumerate(split)})
+        out.update({f"spatial_{backend}_step_ms": float(np.median(split[0]["step_ms"]))})
+        if backend == "gloo":
+            gloo = split
+    out.update({"spatial_unsplit_peak_bytes": alone["peak"],
+                "spatial_unsplit_step_ms": float(np.median(alone["step_ms"])),
+                "spatial_halo_exchanges_per_forward": gloo[0]["halo"][0],
+                "spatial_halo_bytes_per_forward": [r["halo"][1] for r in gloo]})
+    k1["spatial_launches"] = sum(r["k1"] for r in gloo)
+    k2["spatial_launches"] = sum(r["k2"] for r in gloo)
+
+    # K1 on rank 0's candidates (the gathered outputs' selection), K2 on the
+    # step's GT against config #5's 196,416 anchors: bit-equal, and timed
+    cands = [c.cuda() for c in gloo[0]["cands"]]
+    k1["spatial_max_abs_err"] = k1_on(torch, nms, cands, cfg5.model.detect,
+                                      "the split detect's candidates (config #5, rank 0)")
+    k1.update({f"spatial_{k}": v for k, v in nms_timing(
+        nms, nms_cuda, cands, cfg5.model.detect, "the split detect's candidates").items()})
+    anchors = anchors_for_model(cfg5.model).cuda()
+    gt, lbl, ok = (torch.from_numpy(plan["batch"][k]).cuda() for k in ("boxes", "labels",
+                                                                          "valid"))
+    passed, err, line = match_check(anchors, gt, lbl, ok, cfg5.match.shape_weight,
+                                    cfg5.model.anchors.variances, cfg=cfg5.match, exact=True)
+    log(f"[kernel] match_anchors on the split step's GT (config #5, (B, A, G) = (2, "
+        f"{anchors.shape[0]}, 100)): {line}")
+    if not passed:
+        raise RuntimeError("match_anchors differs from the plain version on config #5's GT")
+    k2["spatial_max_abs_err"] = err
+    k2.update({f"spatial_{k}": v for k, v in match_timing(
+        torch, matching, matching_cuda, anchors, cfg5, "config #5's split step", gt, lbl,
+        ok).items()})
+    del alone, gloo, cands
+    torch.cuda.empty_cache()
+
+    # the 2-D mesh: 2 data x 2 model ranks, R50-FPN-512, b4
+    cfg2d = spatial_config(config, "config4_retinanet_r101_coco_train", 4, 2,
+                           backbone="resnet50", name="retinanet_r50_fpn", image_size=512)
+    plan = {"cfg": cfg2d, "seed": 10, "keep_state": True,
+            "batch": train_batch(np.random.default_rng(92), 4),
+            "images": np.random.default_rng(93).integers(0, 256, (4, 512, 512, 3),
+                                                           dtype=np.uint8),
+            "detect_cfg": dataclasses.replace(cfg2d, model=dataclasses.replace(
+                cfg2d.model, detect=dataclasses.replace(cfg2d.model.detect,
+                                                        score_threshold=0.0)))}
+    alone = spatial_run(torch, plan, None, torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    split = spatial_ranks(plan, 4, "gloo", workdir, "spatial_2d")
+    worst = spatial_compare(torch, split, alone, "R50-FPN-512 on 2 data x 2 model", "gloo")
+    if not all(r["layout"][2] == 2 and r["layout"][3] for r in split):
+        raise RuntimeError(f"the 2-D mesh's data axis: {[r['layout'] for r in split]}")
+    out.update({f"spatial_2d_worst_rel_{k}": v for k, v in worst.items()})
+    k1["spatial_2d_launches"] = sum(r["k1"] for r in split)
+    k2["spatial_2d_launches"] = sum(r["k2"] for r in split)
+    return out, k1, k2
+
+
+PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist",
+          "spatial")
 
 
 def main() -> int:
@@ -4075,6 +4402,13 @@ def run_phases(torch, want, only, t0, workdir):
         # K2 once per data-parallel step and K1 once per sharded eval batch
         k1.update({**dist_k1, **cli_k1})
         k2.update({**dist_k2, **cli_k2})
+    # the model axis: image rows split across ranks (config #5, and 2 x 2)
+    if want("spatial"):
+        spatial_out, spatial_k1, spatial_k2 = phase_spatial(
+            torch, config, nms, nms_cuda, matching, matching_cuda, workdir)
+        results.update(spatial_out)
+        k1.update(spatial_k1)
+        k2.update(spatial_k2)
 
     log(json.dumps(results))
     if only:

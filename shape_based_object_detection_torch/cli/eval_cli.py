@@ -14,7 +14,9 @@ evaluation is sharded: each rank detects its rows of every batch of
 ``data.batch_size`` (an artifact's batch per rank), the ranks gather the
 detections and annotations in rank order, and every rank scores the whole
 split in the single process's order; rank 0 prints the result and writes
-``--dump-results``.
+``--dump-results``. With ``--set mesh.model_parallelism=M`` the ranks of a
+data index split each image's rows (float tier only: ``--quantize``,
+``--artifact`` and TTA raise there).
 """
 
 from __future__ import annotations
@@ -102,8 +104,15 @@ def main(argv=None):
     if args.dataset:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 dataset=args.dataset))
+    if cfg.mesh.model_parallelism > 1:
+        from shape_based_object_detection_torch.parallel.spatial import not_under_model_axis
+
+        for flag, name in ((args.quantize, "--quantize"), (args.artifact, "--artifact"),
+                           (args.tta_hflip, "--tta-hflip"), (args.tta_scales, "--tta-scales")):
+            if flag:
+                raise not_under_model_axis(f"eval_cli {name}")
     # torchrun's environment forms the group; alone, no group forms
-    mesh = initialize_multihost(device=args.device)
+    mesh = initialize_multihost(device=args.device, cfg=cfg.mesh)
     try:
         _evaluate(args, cfg, mesh)
     finally:
@@ -120,7 +129,9 @@ def _evaluate(args, cfg, mesh):
         build_dataset, sharded_batches, upload,
     )
     from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
+    from shape_based_object_detection_torch.detection import (
+        MultiScaleBatchDetector, make_detect_fn,
+    )
     from shape_based_object_detection_torch.eval import Evaluator
     from shape_based_object_detection_torch.models.factory import build_model
     from shape_based_object_detection_torch.ops.boxes import boxes_to_original
@@ -165,6 +176,8 @@ def _evaluate(args, cfg, mesh):
                     quantize=args.quantize, activation_scales=args.act_scales or None)
             except ValueError as e:  # e.g. SSD at a scale that changes its plan
                 raise SystemExit(str(e))
+        elif mesh.model_parallelism > 1:  # each rank its rows of the images
+            detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev, mesh)
         else:
             detect, _ = make_serving_detect(module, anchors, cfg.model, cfg.data,
                                             args.quantize, dev, args.act_scales or None)
@@ -196,7 +209,7 @@ def _evaluate(args, cfg, mesh):
     fields = ("boxes", "scores", "labels", "valid")
     for i, (batch, n_valid, gt) in enumerate(sharded_batches(loader, mesh)):
         det = detect(upload(batch.images, dev))
-        # the ranks' detections in rank order: the whole batch's
+        # the data indexes' detections in order: the whole batch's
         det = all_gather_rows((getattr(det, k) for k in fields), mesh)
         det = types.SimpleNamespace(**{k: d[:n_valid].cpu().numpy()
                                        for k, d in zip(fields, det)})

@@ -15,6 +15,13 @@ started by hand with ``--num-processes N --process-id i --coordinator
 host:port``. ``data.batch_size`` is the global batch; each rank loads its
 ``batch_size / N`` rows, and the step equals a single process's on the
 global batch. Rank 0 logs and writes checkpoints.
+
+``--set mesh.model_parallelism=M`` splits each image's rows over M ranks
+(the reference's "model" axis, config #5's 1024 px lever): the N ranks form
+N / M data indexes of M ranks each; the ranks of one data index load and
+augment the same ``batch_size * M / N`` images, and each computes its rows
+of every feature map, with halos from its neighbours. The step equals a
+single process's on the global batch.
 """
 
 from __future__ import annotations
@@ -278,9 +285,9 @@ def resolve_cli_config(args):
 
 
 def build_loader(args, cfg, dataset, mesh, batch_size: int):
-    """The training loader ``--loader`` names, for this rank's shard at its
-    per-rank ``batch_size``."""
-    kw = dict(seed=cfg.train.seed, host_id=mesh.rank, num_hosts=mesh.world,
+    """The training loader ``--loader`` names, for this rank's shard (its
+    data index's) at its per-index ``batch_size``."""
+    kw = dict(seed=cfg.train.seed, host_id=mesh.data_index, num_hosts=mesh.data_size,
               workers=args.workers)
     if args.loader == "grain":
         from shape_based_object_detection_torch.data.grain_pipeline import GrainLoader
@@ -347,7 +354,7 @@ def main(argv=None):
         if not args.steps:
             return
     mesh = initialize_multihost(args.coordinator or None, args.num_processes or None,
-                                args.process_id, args.device, args.dist_timeout)
+                                args.process_id, args.device, args.dist_timeout, cfg.mesh)
     try:
         train(args, cfg, mesh)
     finally:
@@ -356,7 +363,7 @@ def main(argv=None):
 
 def train(args, cfg, mesh):
     """The training loop of ``main`` on ``mesh`` (this process's place in
-    the data-parallel group, or a single process)."""
+    the group, or a single process)."""
     from shape_based_object_detection_torch import train as train_lib
     from shape_based_object_detection_torch.checkpoint import (
         BestCheckpointKeeper, CheckpointManager,
@@ -371,7 +378,7 @@ def train(args, cfg, mesh):
     lead = mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
     dev = mesh.device
-    per_rank_bs = make_mesh_for_batch(cfg.data.batch_size, mesh, cfg.mesh)
+    per_index_bs = make_mesh_for_batch(cfg.data.batch_size, mesh, cfg.mesh)
     module, anchors = build_model(cfg.model, dev, train=True)
     if args.init_params:
         module.load_state_dict(torch.load(args.init_params, map_location=dev,
@@ -412,7 +419,7 @@ def train(args, cfg, mesh):
     state = broadcast_state(state, mesh)
 
     dataset = build_dataset(cfg, args)
-    loader = build_loader(args, cfg, dataset, mesh, per_rank_bs)
+    loader = build_loader(args, cfg, dataset, mesh, per_index_bs)
     logger = MetricsLogger(log_every=args.log_every,
                            tensorboard_dir=(args.tb_dir or None) if lead else None)
     eval_step = (train_lib.make_eval_step(module, anchors, cfg, device=dev, mesh=mesh)

@@ -11,6 +11,11 @@ Soft-NMS is the alternative a config may pick.
 Test-time augmentation: hflip (one forward on the doubled batch, the two
 candidate sets merged by one NMS) and multi-scale (one detect per scale on
 shared weights, merged by one NMS), as the reference's float tier.
+
+Under a mesh with a model axis (``make_detect_fn(..., mesh=)``) each rank
+of a model group runs the forward on its rows of the images and gets the
+whole images' head outputs; candidate selection and NMS then run on them on
+every rank of the group, alike.
 """
 
 from __future__ import annotations
@@ -155,9 +160,10 @@ class DetectProgram(nn.Module):
     it: the live and the exported program are one."""
 
     def __init__(self, module: nn.Module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
-                 data_cfg: DataConfig | None = None):
+                 data_cfg: DataConfig | None = None, row_shard=None):
         super().__init__()
         self.module = module
+        self.row_shard = row_shard
         self.register_buffer("anchors", anchors_cxcywh)
         self.cfg = cfg
         self.mean = tuple(data_cfg.mean if data_cfg else image_lib.IMAGENET_MEAN)
@@ -168,7 +174,10 @@ class DetectProgram(nn.Module):
         tta = self.cfg.detect.tta_hflip
         if tta:  # one doubled-batch forward; W is dim 2 of NHWC
             x = torch.cat([x, x.flip(2)], 0)
-        cls_logits, box_offsets = self.module(x.permute(0, 3, 1, 2))
+        x = x.permute(0, 3, 1, 2)
+        if self.row_shard is not None:
+            x = self.row_shard.split(x)
+        cls_logits, box_offsets = self.module(x)
         post = postprocess_tta_hflip if tta else postprocess
         return tuple(post(cls_logits, box_offsets, self.anchors, self.cfg))
 
@@ -179,7 +188,7 @@ def module_device(module: nn.Module) -> torch.device:
 
 
 def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
-                   data_cfg: DataConfig | None = None, device=None):
+                   data_cfg: DataConfig | None = None, device=None, mesh=None):
     """Returns ``detect(images) -> Detections``, which runs ``DetectProgram``.
 
     ``images``: (B, H, W, 3) uint8 (numpy or tensor) with H = W =
@@ -188,13 +197,29 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
     (or ``quantize.quantize_module``) on the same ``device`` (default: the
     card). With ``cfg.detect.tta_hflip`` one forward runs on the doubled
     batch ``[x, hflip(x)]`` and ``postprocess_tta_hflip`` merges the halves.
-    """
-    dev = resolve_device(device)
+
+    With a ``parallel.Mesh`` whose model axis has more than one rank, every
+    rank of a model group passes the same images (its data index's); each
+    runs the forward on its rows (``set_row_shard`` on ``module``), and
+    each returns the images' detections. Gathering the data indexes'
+    detections is the caller's (``parallel.mesh.all_gather_rows``). TTA
+    and the int8 tiers raise there."""
+    from shape_based_object_detection_torch.models.retinanet import set_row_shard
+    from shape_based_object_detection_torch.parallel.mesh import spatial_image_sharding
+    from shape_based_object_detection_torch.parallel.spatial import not_under_model_axis
+
+    dev = resolve_device(device if mesh is None or device is not None else mesh.device)
     if module_device(module) != dev or anchors_cxcywh.device != dev:
         raise ValueError(
             f"detect on {dev} needs the module and anchors there; they are on "
             f"{module_device(module)} and {anchors_cxcywh.device}")
-    program = DetectProgram(module, anchors_cxcywh, cfg, data_cfg)
+    shard = None
+    if mesh is not None and mesh.model_parallelism > 1:
+        if cfg.detect.tta_hflip:
+            raise not_under_model_axis("hflip TTA")
+        shard = spatial_image_sharding(mesh, model=cfg)
+        set_row_shard(module, shard)
+    program = DetectProgram(module, anchors_cxcywh, cfg, data_cfg, shard)
 
     @torch.inference_mode()
     def detect(images) -> nms_lib.Detections:
@@ -221,7 +246,9 @@ def _build_scale_programs(module, model_cfg: ModelConfig, scales,
     from shape_based_object_detection_torch import quantize as quantize_lib
     from shape_based_object_detection_torch.models.factory import build_module
     from shape_based_object_detection_torch.ops import anchors as anchor_lib
+    from shape_based_object_detection_torch.parallel.spatial import refuse_row_shard
 
+    refuse_row_shard(module, "multi-scale TTA")
     dev = resolve_device(device)
     quantize = quantize_lib.normalize_quantize_mode(quantize)
     if activation_scales is not None and quantize != "full":

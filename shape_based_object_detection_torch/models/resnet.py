@@ -6,6 +6,13 @@ Returns C3, C4, C5 (strides 8, 16, 32) for the FPN. BatchNorm is frozen
 passes ``train=True``, as the reference's ``nn.BatchNorm`` runs it.
 Attribute names follow the flax module paths (``layer2_0.conv2``,
 ``downsample_bn``), so converted JAX weights load with ``strict=True``.
+
+Under a row shard (``row_shard``, set on the whole detector by
+``models/retinanet.set_row_shard``) the input is this rank's rows of the
+images: the stem's convolution and max-pool and each bottleneck's 3x3 take
+their halos from the neighbouring ranks (``parallel/spatial.py``); the 1x1
+convolutions, the projections and frozen BatchNorm are row-local, and
+trainable BatchNorm sums its statistics over its group, the world.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from shape_based_object_detection_torch.parallel.spatial import row_conv2d, row_max_pool2d
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
@@ -135,6 +144,8 @@ def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn
 
 
 class Bottleneck(nn.Module):
+    row_shard = None
+
     def __init__(self, cin: int, channels: int, stride: int = 1, train_bn: bool = False):
         super().__init__()
         out_ch = channels * 4
@@ -152,7 +163,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y), train))
+        y = F.relu(self.bn2(row_conv2d(self.conv2, y, self.row_shard), train))
         y = self.bn3(self.conv3(y), train)
         residual = (x if self.downsample is None
                     else self.downsample_bn(self.downsample(x), train))
@@ -163,6 +174,8 @@ class ResNet(nn.Module):
     """Returns (C3, C4, C5) with strides (8, 16, 32). ``remat`` makes each
     bottleneck a segment of rematerialisation, as the reference's per-block
     ``nn.remat``."""
+
+    row_shard = None
 
     def __init__(self, variant: str = "resnet50", width_mult: float = 1.0,
                  train_bn: bool = False, remat: bool = False):
@@ -185,8 +198,8 @@ class ResNet(nn.Module):
         self.out_channels = tuple(w * 4 for w in widths[1:])  # C3, C4, C5
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x), train))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = F.relu(self.bn1(row_conv2d(self.conv1, x, self.row_shard), train))
+        x = row_max_pool2d(x, 3, 2, 1, self.row_shard)
         taps = []
         for names in self.stages:
             for name in names:

@@ -25,7 +25,7 @@ from shape_based_object_detection_torch.models.resnet import round_channels, run
 from shape_based_object_detection_torch.models.retinanet import conv_precision
 from shape_based_object_detection_torch.models.vgg import L2Norm, VGG16Trunk
 from shape_based_object_detection_torch.ops.anchors import (
-    num_anchors_per_cell, ssd_extra_plan,
+    num_anchors_per_cell, ssd_extra_plan, ssd_feature_sizes,
 )
 
 
@@ -90,3 +90,7 @@ class SSD(nn.Module):
                 box_out.append(loc.reshape(b, -1, 4))
                 cls_out.append(cls.reshape(b, -1, self.num_outputs))
         return torch.cat(cls_out, 1).float(), torch.cat(box_out, 1).float()
+
+    def feature_sizes(self) -> Tuple[int, ...]:
+        """The side of each feature map the heads read."""
+        return ssd_feature_sizes(self.cfg.image_size)

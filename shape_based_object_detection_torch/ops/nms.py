@@ -90,6 +90,19 @@ def greedy_nms(
                      valid=torch.cat(ok_out, -1))
 
 
+def nms_mask(boxes_xyxy: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The (..., N) keep mask of classic NMS: ``greedy_nms`` run to N picks,
+    its kept indices marked."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    res = greedy_nms(boxes_xyxy, scores, valid, iou_threshold, scores.shape[-1])
+    # a max, not a set: a slot after the last pick holds index 0, not kept
+    keep = torch.zeros(scores.shape, dtype=torch.uint8, device=scores.device)
+    return keep.scatter_reduce(-1, res.indices.long(), res.valid.to(torch.uint8),
+                               "amax").bool()
+
+
 def gather_detections(boxes_xyxy, classes, res: NMSResult) -> Detections:
     """Detections from an NMS result over (B, N) candidates: the kept
     boxes (unshifted) and classes, gathered by index."""
@@ -176,6 +189,23 @@ def _sort_desc(x: torch.Tensor, k: int):
     ``jax.lax.top_k``; ``torch.topk`` promises no tie order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def select_top_candidates(
+    boxes_xyxy: torch.Tensor,  # (..., A, 4) decoded boxes, shared across classes
+    class_scores: torch.Tensor,  # (..., A, C) per-class selection scores
+    score_threshold: float,
+    top_k: int,
+    activation=None,
+    two_stage: bool | None = None,
+):
+    """``select_top_candidate_pairs`` with the winners' boxes gathered:
+    (boxes (..., k, 4), scores, classes int32, valid). ``detection``
+    decodes only the k winners instead (``select_candidates``)."""
+    anchor_idx, scores, classes, valid = select_top_candidate_pairs(
+        class_scores, score_threshold, top_k, activation, two_stage)
+    boxes = boxes_xyxy.gather(-2, anchor_idx[..., None].expand(*anchor_idx.shape, 4))
+    return boxes, scores, classes, valid
 
 
 def select_top_candidate_pairs(

@@ -1,5 +1,6 @@
-"""Data parallelism: the process group, each rank's rows, the collectives
-of the train and eval steps (``mesh``)."""
+"""Data parallelism and the model axis: the process group, each rank's
+rows, the collectives of the train and eval steps (``mesh``), and the image
+rows split across the ranks of a model group (``spatial``)."""
 
 from shape_based_object_detection_torch.parallel.mesh import (
     Mesh,
@@ -9,4 +10,11 @@ from shape_based_object_detection_torch.parallel.mesh import (
     shutdown,
     single_process,
     spatial_image_sharding,
+)
+from shape_based_object_detection_torch.parallel.spatial import (
+    RowShard,
+    gather_rows,
+    halo_exchange,
+    row_conv2d,
+    row_max_pool2d,
 )

@@ -1,5 +1,5 @@
-"""Data parallelism over a process group (port of the JAX package's
-``parallel/mesh.py``).
+"""Data parallelism and the model axis over a process group (port of the
+JAX package's ``parallel/mesh.py``).
 
 The reference lays a ``jax.sharding.Mesh`` over every device and lets XLA
 insert the gradient all-reduce. The port runs one process per card, as
@@ -14,8 +14,16 @@ starts from rank 0's state (``broadcast_state``, the reference's
 reference's single program sums over the global batch: the gradients, the
 number of positives and BatchNorm's batch statistics.
 
-The reference's "model" axis (``spatial_image_sharding``, config #5's image
-rows split across devices) is not ported: ``ROADMAP.md`` lists it first.
+With ``MeshConfig.model_parallelism = mp > 1`` the ranks form the
+reference's 2-D mesh ``reshape(world // mp, mp)``: rank ``r = d * mp + m``
+has data index ``d`` and model index ``m``. The ``mp`` ranks of a data
+index load the same images, and rank ``m`` computes rows ``[m * H / mp,
+(m + 1) * H / mp)`` of every feature map (``spatial_image_sharding``, the
+reference's config #5 1024 px lever; the halo exchanges GSPMD inserts are
+written out in ``parallel/spatial.py``). The data group (ranks of one
+``m``) sums what the data indexes share, the model group (ranks of one
+``d``) exchanges rows, and the world sums the gradients and BatchNorm's
+statistics.
 """
 
 from __future__ import annotations
@@ -29,7 +37,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from shape_based_object_detection_torch.config import MeshConfig
+from shape_based_object_detection_torch.config import MeshConfig, ModelConfig
+from shape_based_object_detection_torch.parallel.spatial import (
+    ROADMAP_UNEVEN, RowShard, check_rows, not_under_model_axis,
+)
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -37,24 +48,51 @@ DEFAULT_TIMEOUT_S = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One process's place in the data-parallel group: ``group`` is None in
-    a single process (no collective runs), else the process group, in which
-    this process is ``rank`` of ``world`` and computes on ``device``."""
+    """One process's place in the group: ``group`` is None in a single
+    process (no collective runs), else the world's process group, in which
+    this process is ``rank`` of ``world`` and computes on ``device``. With
+    a model axis (``model_parallelism`` > 1) ``data_group`` holds the ranks
+    of this rank's model index (None when the data axis has one index) and
+    ``model_group`` those of its data index."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
     world: int
     device: torch.device
+    model_parallelism: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
 
     @property
     def distributed(self) -> bool:
         return self.group is not None
 
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_parallelism
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_parallelism
+
+    @property
+    def data_size(self) -> int:
+        """The data axis's size: the ranks that load different images."""
+        return self.world // self.model_parallelism
+
+    @property
+    def data_axis_group(self) -> Optional[dist.ProcessGroup]:
+        """The group over which the data indexes sum and gather: the world
+        without a model axis, None when the data axis has one index."""
+        return self.group if self.model_parallelism == 1 else self.data_group
+
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch (the reference's
-        ``batch_sharding``): the ranks' slices in rank order."""
-        per_rank = make_mesh_for_batch(global_batch, self)
-        return slice(self.rank * per_rank, (self.rank + 1) * per_rank)
+        ``batch_sharding``): the data indexes' slices in order; the ranks of
+        one data index share its rows."""
+        per_index = make_mesh_for_batch(global_batch, self,
+                                        MeshConfig(model_parallelism=self.model_parallelism))
+        return slice(self.data_index * per_index, (self.data_index + 1) * per_index)
 
 
 def single_process(device=None) -> Mesh:
@@ -73,8 +111,10 @@ def _local_rank(process_id: int) -> int:
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None, device=None,
-                         timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """Join the data-parallel group and return this process's ``Mesh``.
+                         timeout_s: float = DEFAULT_TIMEOUT_S,
+                         cfg: MeshConfig = MeshConfig()) -> Mesh:
+    """Join the group and return this process's ``Mesh`` over it, with
+    ``cfg.model_parallelism`` as its model axis (``make_mesh``).
 
     With ``num_processes > 1`` the group meets at ``tcp://{coordinator}``
     (``host:port``; process 0 listens there) as ``process_id``. Without it,
@@ -91,6 +131,7 @@ def initialize_multihost(coordinator: Optional[str] = None,
     from_flags = num_processes is not None and num_processes > 1
     from_env = not from_flags and "WORLD_SIZE" in os.environ and "RANK" in os.environ
     if not (from_flags or from_env):
+        _model_axis(1, cfg)
         return single_process(device)
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized in this process")
@@ -105,6 +146,7 @@ def initialize_multihost(coordinator: Optional[str] = None,
     else:
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         init = "env://"
+    _model_axis(world, cfg)  # before the group forms: every rank raises alike
     if dev.type == "cuda":
         resolve_device("cuda")  # raises without a card
         torch.cuda.set_device(_local_rank(rank))
@@ -115,7 +157,7 @@ def initialize_multihost(coordinator: Optional[str] = None,
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s), **kw)
-    return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), dev)
+    return make_mesh(dev, cfg)
 
 
 def shutdown(mesh: Mesh) -> None:
@@ -124,51 +166,78 @@ def shutdown(mesh: Mesh) -> None:
         dist.destroy_process_group()
 
 
+def _model_axis(world: int, cfg: MeshConfig) -> int:
+    """``cfg``'s model axis size, which must divide ``world`` (the
+    reference asserts it; flooring would idle ranks)."""
+    mp = max(1, cfg.model_parallelism)
+    if world % mp:
+        raise ValueError(f"model_parallelism={mp} does not divide the world size {world}")
+    return mp
+
+
 def make_mesh(device=None, cfg: MeshConfig = MeshConfig()) -> Mesh:
-    """The mesh of this process: the initialized default group, if any,
-    else a single process. ``model_parallelism > 1`` is not ported."""
-    if max(1, cfg.model_parallelism) > 1:
-        _no_model_axis(cfg.model_parallelism)
+    """The mesh of this process over the initialized default group, if
+    any, else a single process, with ``cfg.model_parallelism`` ranks on
+    its model axis, laid out as the reference's ``reshape(world // mp,
+    mp)``. Every rank must call it, in the same order as the others: with
+    ``mp > 1`` it makes the data and model subgroups (``dist.new_group``
+    for each, on every rank). Raises ValueError when ``mp`` does not
+    divide the world."""
     if not dist.is_initialized():
+        _model_axis(1, cfg)
         return single_process(device)
-    return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(),
-                resolve_device(device))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mp = _model_axis(world, cfg)
+    dev = resolve_device(device)
+    if mp == 1:
+        return Mesh(dist.group.WORLD, rank, world, dev)
+    n_data = world // mp
+    data_group = model_group = None
+    for m in range(mp):  # the data groups: ranks of one model index
+        g = dist.new_group([d * mp + m for d in range(n_data)])
+        if m == rank % mp and n_data > 1:
+            data_group = g
+    for d in range(n_data):  # the model groups: ranks of one data index
+        g = dist.new_group([d * mp + m for m in range(mp)])
+        if d == rank // mp:
+            model_group = g
+    return Mesh(dist.group.WORLD, rank, world, dev, mp, data_group, model_group)
 
 
 def make_mesh_for_batch(global_batch: int, mesh: Optional[Mesh] = None,
                         cfg: MeshConfig = MeshConfig()) -> int:
-    """The per-rank batch of ``global_batch`` over ``mesh`` (default: this
-    process's). Raises when the model axis does not divide the world (the
-    reference floors nothing either), when ``model_parallelism > 1`` (the
-    model axis is not ported), and when the world does not divide the
-    global batch: the group cannot shrink across processes."""
+    """The per-data-index batch of ``global_batch`` over ``mesh`` (default:
+    this process's) with ``cfg.model_parallelism`` ranks on the model axis:
+    ``global_batch / (world / mp)``. Raises when the model axis does not
+    divide the world, and when the data axis does not divide the global
+    batch: the group cannot shrink across processes."""
     mesh = make_mesh() if mesh is None else mesh
-    mp = max(1, cfg.model_parallelism)
-    if mesh.world % mp:
-        raise ValueError(f"model_parallelism={mp} does not divide the world size {mesh.world}")
-    if mp > 1:
-        _no_model_axis(mp)
-    if global_batch % mesh.world:
+    mp = _model_axis(mesh.world, cfg)
+    n_data = mesh.world // mp
+    if global_batch % n_data:
         raise ValueError(
-            f"global batch {global_batch} is not divisible by the world size "
-            f"{mesh.world}; adjust data.batch_size — the group cannot be shrunk "
-            "across processes")
-    return global_batch // mesh.world
+            f"global batch {global_batch} is not divisible by the data-axis size {n_data} "
+            f"(world size {mesh.world} / model_parallelism={mp}); adjust data.batch_size "
+            "— the group cannot be shrunk across processes")
+    return global_batch // n_data
 
 
-def _no_model_axis(mp: int):
-    raise NotImplementedError(
-        f"model_parallelism={mp}: the model axis (image rows split across ranks) "
-        "is not ported yet (ROADMAP.md, modules still to port, item 1)")
-
-
-def spatial_image_sharding(mesh: Mesh, cfg: MeshConfig = MeshConfig()):
-    """The reference splits image rows over its model axis (config #5's
-    1024 px lever, GSPMD's halo exchange); the port has no counterpart
-    yet: this raises."""
-    raise NotImplementedError(
-        "spatial_image_sharding (image rows over the model axis) is not ported "
-        "yet (ROADMAP.md, modules still to port, item 1)")
+def spatial_image_sharding(mesh: Mesh, cfg: MeshConfig = MeshConfig(),
+                           model: Optional[ModelConfig] = None) -> RowShard:
+    """The reference's images with the batch over "data" and the rows over
+    "model": this rank's place on the model axis, whose ``split`` takes its
+    rows of a full NCHW tensor. ``cfg`` names the axes in the reference and
+    is not read here: the axis is the mesh's. With ``model`` the rows are
+    checked: ValueError unless ``model.image_size`` is divisible by the
+    coarsest stride times ``mp`` (RetinaNet's P7, 128: ``mp`` in {1, 2, 4, 8}
+    at 1024 px, {1, 2} at 256), NotImplementedError for SSD, whose maps do
+    not split evenly."""
+    mp = mesh.model_parallelism
+    if model is not None:
+        if model.family != "retinanet":
+            raise not_under_model_axis(f"the {model.family} family", ROADMAP_UNEVEN)
+        check_rows(model.image_size, max(model.anchors.strides), mp)
+    return RowShard(mesh.model_group, mesh.model_index, mp)
 
 
 # ---------------------------------------------------------------------------
@@ -183,12 +252,14 @@ def _memory_order(t: torch.Tensor) -> List[int]:
     return sorted(range(t.dim()), key=lambda d: -t.stride(d))
 
 
-def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
-    """Sum ``tensors`` over the group, in place, as one all-reduce of one
-    flat buffer per dtype (a single process: nothing to do). Each tensor is
+def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh, data_axis: bool = False) -> None:
+    """Sum ``tensors`` over the world (``data_axis``: over the data axis),
+    in place, as one all-reduce of one flat buffer per dtype (a single
+    process, or a data axis of one index: nothing to do). Each tensor is
     packed in its own memory order and unpacked by one multi-tensor copy, so
     the packing costs two copies of the bytes and a few launches."""
-    if not mesh.distributed or not tensors:
+    pg = mesh.data_axis_group if data_axis else mesh.group
+    if pg is None or not tensors:
         return
     by_dtype = {}
     for t in tensors:
@@ -196,7 +267,7 @@ def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
     for group in by_dtype.values():
         orders = [_memory_order(t) for t in group]
         flat = torch.cat([t.permute(o).reshape(-1) for t, o in zip(group, orders)])
-        dist.all_reduce(flat, group=mesh.group)
+        dist.all_reduce(flat, group=pg)
         parts, offset = [], 0
         for t, o in zip(group, orders):
             shape = [t.shape[d] for d in o]
@@ -207,17 +278,19 @@ def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
 
 
 def all_gather_rows(tensors: Iterable[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """Each tensor's rows from every rank, concatenated in rank order: the
+    """Each tensor's rows from every data index, concatenated in order: the
     reference's replicated output (``out_sharding``). Every rank passes
-    tensors of the same shapes; bool tensors travel as uint8."""
+    tensors of the same shapes (the ranks of one data index the same
+    values); bool tensors travel as uint8."""
     tensors = list(tensors)
-    if not mesh.distributed:
+    group = mesh.data_axis_group
+    if group is None:
         return tensors
     out = []
     for t in tensors:
         x = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
-        parts = [torch.empty_like(x) for _ in range(mesh.world)]
-        dist.all_gather(parts, x, group=mesh.group)
+        parts = [torch.empty_like(x) for _ in range(mesh.data_size)]
+        dist.all_gather(parts, x, group=group)
         y = torch.cat(parts)
         out.append(y.bool() if t.dtype == torch.bool else y)
     return out
@@ -227,7 +300,7 @@ def all_gather_arrays(arrays: Iterable[np.ndarray], mesh: Mesh) -> List[np.ndarr
     """``all_gather_rows`` of host arrays (through the mesh's device, as
     NCCL gathers only tensors on the card)."""
     arrays = list(arrays)
-    if not mesh.distributed:
+    if mesh.data_axis_group is None:
         return arrays
     gathered = all_gather_rows((torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
                                 for a in arrays), mesh)

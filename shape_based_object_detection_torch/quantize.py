@@ -362,7 +362,11 @@ def quantize_module(module: nn.Module, mode, activation_scales=None, min_size: i
     "full" static; a convolution it lacks raises, naming it. ``skip_fn``
     (a module's qualified name -> bool, default ``default_int8_skip``)
     keeps convolutions in float in "full". ``module`` must be on ``device``
-    (default: the card)."""
+    (default: the card). A module split by rows over a model axis
+    raises NotImplementedError."""
+    from shape_based_object_detection_torch.parallel.spatial import refuse_row_shard
+
+    refuse_row_shard(module, "an int8 tier")
     dev = resolve_device(device)
     param = next(module.parameters())
     if param.device != dev:

@@ -30,6 +30,14 @@ and BatchNorm take their counts and statistics over the group, and after
 backward one all-reduce of one flat buffer sums the gradients (and the
 loss terms) before clipping, the optimizer and the EMA, which then run
 alike on every rank.
+
+With a model axis (``Mesh.model_parallelism`` > 1) the ranks of one data
+index augment the same images, and each runs the forward on its rows of
+them (``set_row_shard``): halo exchanges within the model group, BatchNorm's
+statistics over the world, the heads' outputs gathered, so every rank of
+the group matches the data index's images on the full anchors and computes
+the same loss. The positives and the loss terms sum over the data group,
+and the gradients, each rank's rows' share, over the world.
 """
 
 from __future__ import annotations
@@ -47,11 +55,11 @@ from shape_based_object_detection_torch.losses import detection_loss
 from shape_based_object_detection_torch.models.resnet import (
     apply_batch_stats, clear_batch_stats, run_segment, set_batch_stats_group,
 )
-from shape_based_object_detection_torch.models.retinanet import conv_precision
+from shape_based_object_detection_torch.models.retinanet import conv_precision, set_row_shard
 from shape_based_object_detection_torch.ops.boxes import true_div
 from shape_based_object_detection_torch.ops.matching import match_batch
 from shape_based_object_detection_torch.parallel.mesh import (
-    Mesh, all_gather_rows, all_reduce_, single_process,
+    Mesh, all_gather_rows, all_reduce_, single_process, spatial_image_sharding,
 )
 from shape_based_object_detection_torch.utils import image as image_lib
 from shape_based_object_detection_torch.utils.device import resolve_device
@@ -270,18 +278,22 @@ def _autocast(cfg: ExperimentConfig, device: torch.device):
 
 
 def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
-                 group=None):
+                 group=None, row_shard=None):
     """``loss_fn(images_nchw, boxes, labels, valid) -> (loss, metrics)``,
     the differentiable core of the train step: the training forward
     (``train=True``: batch statistics in BatchNorm where ``train_bn`` is
     set), then matching and the loss. ``train.remat`` on a module built
     without ``model.remat`` checkpoints the whole forward. Under a process
-    ``group`` the loss is this rank's share of the global batch's."""
+    ``group`` the loss is this rank's share of the global batch's. With a
+    ``row_shard`` (set on ``module`` too) the forward takes this rank's
+    rows of the images."""
     variances = cfg.model.anchors.variances
     device = anchors.device
     whole_remat = cfg.train.remat and not module.cfg.remat
 
     def forward(images):
+        if row_shard is not None:
+            images = row_shard.split(images)
         return module(images, train=True)
 
     def loss_fn(images, boxes, labels, valid):
@@ -295,7 +307,7 @@ def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig
     return loss_fn
 
 
-# the loss terms a rank computes as its share of the global batch's
+# the loss terms a data index computes as its share of the global batch's
 SUMMED_METRICS = ("loss", "loss_cls", "loss_box")
 
 
@@ -320,9 +332,16 @@ def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
     apply_batch_stats(state.module)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     metrics = {k: v.detach() for k, v in metrics.items()}
+    summed = [metrics[k] for k in SUMMED_METRICS]
     # one coalesced all-reduce: the ranks' gradients of their shares sum to
-    # the global batch's gradient, their loss terms to its loss
-    all_reduce_(grads + [metrics[k] for k in SUMMED_METRICS], mesh)
+    # the global batch's gradient, their loss terms to its loss. Under a
+    # model axis the ranks of a data index hold the same loss terms: those
+    # sum over the data axis alone
+    if mesh.model_parallelism == 1:
+        all_reduce_(grads + summed, mesh)
+    else:
+        all_reduce_(grads, mesh)
+        all_reduce_(summed, mesh, data_axis=True)
     metrics["grad_norm"] = global_norm(grads)
     applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
     d = cfg.train.ema_decay
@@ -343,17 +362,29 @@ def _batch_on(batch: Batch, dev: torch.device):
                  for k in ("images", "boxes", "labels", "valid"))
 
 
+def _row_shard(module: nn.Module, cfg: ExperimentConfig, mesh: Mesh):
+    """The mesh's row shard set on ``module`` (None, and cleared, without a
+    model axis)."""
+    shard = (spatial_image_sharding(mesh, cfg.mesh, cfg.model)
+             if mesh.model_parallelism > 1 else None)
+    set_row_shard(module, shard)
+    return shard
+
+
 def _step_parts(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig,
                 device, mesh: Optional[Mesh]):
     """The device, mesh, optimizer, loss function and decay mask of a train
-    step; BatchNorm takes its statistics over the mesh's group."""
+    step; BatchNorm takes its statistics over the mesh's group (the world),
+    the loss its positives over the data axis."""
     if mesh is None:
         mesh = single_process(device)
     dev = _on_device(module, anchors, mesh.device if device is None else device)
     if dev != mesh.device:
         raise ValueError(f"the step's device {dev} is not its mesh's {mesh.device}")
     set_batch_stats_group(module, mesh.group)
-    return (dev, mesh, make_optimizer(cfg.train), make_loss_fn(module, anchors, cfg, mesh.group),
+    shard = _row_shard(module, cfg, mesh)
+    return (dev, mesh, make_optimizer(cfg.train),
+            make_loss_fn(module, anchors, cfg, mesh.data_axis_group, shard),
             list(decay_mask(module).values()))
 
 
@@ -367,8 +398,9 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
     device are used in place. The state is updated in place and returned;
     the metrics are 0-d tensors on the device (reading one waits for the
     step). With a ``mesh`` whose group is set, ``batch`` is this rank's
-    rows of the global batch (``mesh.rows``), every rank calls the step,
-    and the metrics are the global batch's."""
+    rows of the global batch (``mesh.rows``: under a model axis its data
+    index's rows, the same on every rank of the model group), every rank
+    calls the step, and the metrics are the global batch's."""
     dev, mesh, opt, loss_fn, mask = _step_parts(module, anchors, cfg, device, mesh)
 
     def train_step(state: TrainState, batch: Batch):
@@ -376,7 +408,7 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
         if augment:
             images, boxes, labels, valid = augment_batch(
                 state.generator, images, boxes, labels, valid, cfg.data,
-                cfg.model.image_size, mesh.rank, mesh.world)
+                cfg.model.image_size, mesh.data_index, mesh.data_size)
         else:
             images = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
@@ -423,15 +455,15 @@ def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
     def augment(state: TrainState, batch: Batch) -> Carry:
         if side is None:
             return Carry(*augment_batch(state.generator, *_batch_on(batch, dev),
-                                        cfg.data, cfg.model.image_size, mesh.rank,
-                                        mesh.world))
+                                        cfg.data, cfg.model.image_size, mesh.data_index,
+                                        mesh.data_size))
         main = torch.cuda.current_stream(dev)
         # the batch may have been written on the main stream (an upload)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             raw = _batch_on(batch, dev)
             out = augment_batch(state.generator, *raw, cfg.data, cfg.model.image_size,
-                                mesh.rank, mesh.world)
+                                mesh.data_index, mesh.data_size)
             ready = torch.cuda.Event()
             ready.record(side)
         for t in raw:
@@ -465,14 +497,18 @@ def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConf
     state's parameters (or its EMA) and postprocess, for validation.
     BatchNorm normalises with its running statistics (the module's buffers,
     with the EMA too). With a ``mesh`` whose group is set, ``images`` are
-    this rank's rows and every rank gets the global batch's detections in
-    rank order (the reference's replicated ``out_sharding``)."""
+    this rank's rows (its data index's) and every rank gets the global
+    batch's detections in rank order (the reference's replicated
+    ``out_sharding``); under a model axis each rank runs the forward on its
+    rows of the images and the model group's ranks postprocess the gathered
+    outputs alike."""
     from shape_based_object_detection_torch.detection import postprocess
     from shape_based_object_detection_torch.ops.nms import Detections
 
     if mesh is None:
         mesh = single_process(device)
     dev = _on_device(module, anchors, mesh.device if device is None else device)
+    shard = _row_shard(module, cfg, mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images):
@@ -483,6 +519,8 @@ def make_eval_step(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConf
         x = torch.as_tensor(images).to(dev, non_blocking=True)
         x = image_lib.normalize_images(x, cfg.data.mean, cfg.data.std)
         x = x.permute(0, 3, 1, 2)
+        if shard is not None:
+            x = shard.split(x)
         with conv_precision(cfg.model.precision), _autocast(cfg, dev):
             if use_ema:
                 weights = {**dict(state.module.named_buffers()), **state.ema}

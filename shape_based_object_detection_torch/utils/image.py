@@ -109,6 +109,16 @@ def boxes_px_to_input_norm(boxes_px: np.ndarray, h: int, w: int,
     return np.clip(out, 0.0, 1.0)
 
 
+def boxes_norm_to_original_px(boxes_norm: np.ndarray, h: int, w: int,
+                              letterbox: bool = False) -> np.ndarray:
+    """The host inverse of :func:`boxes_px_to_input_norm`, clipped to the
+    original image: ``ops.boxes.boxes_to_original`` on a numpy array."""
+    from shape_based_object_detection_torch.ops.boxes import boxes_to_original
+
+    return boxes_to_original(torch.from_numpy(np.asarray(boxes_norm)), h, w,
+                             letterbox).numpy()
+
+
 def decode_image_host(path_or_bytes) -> np.ndarray:
     """Decode a JPEG/PNG file or its bytes with PIL -> (H, W, 3) uint8."""
     from PIL import Image

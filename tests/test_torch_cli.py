@@ -6,7 +6,9 @@ the divergence guard, ``eval_cli`` under both protocols (equal to an
 in-process Evaluator fed by ``make_eval_step``) and with ``--dump-results``,
 the cache, device and grain loaders with their resume, and data
 parallelism: ``--num-processes 2`` as two processes, ``eval_cli`` in a
-group of two, and a coordinator that never answers."""
+group of two, and a coordinator that never answers; and the model axis:
+``train_cli`` and ``eval_cli`` with each image's rows split over two
+processes."""
 
 import contextlib
 import io
@@ -253,6 +255,72 @@ def test_train_cli_two_processes(tmp_path):
     assert sorted(os.listdir(tmp_path / "dp")) == ["3", "best"]
     out = _train(tmp_path / "dp", *common, steps=4)
     assert "restored checkpoint at step 3" in out and "done at step 4" in out
+
+
+def test_train_and_eval_cli_split_rows_over_two_processes(tmp_path):
+    """``--set mesh.model_parallelism=2`` on two processes: one data index
+    whose two ranks each compute half of every image's rows (256 px, the
+    smallest size whose rows split down to P7). ``train_cli`` logs the
+    single process's losses and val mAP and ends with equal parameter
+    checksums; ``eval_cli`` on its checkpoint, in a group of two from
+    torchrun's environment, prints the single process's metrics."""
+    common = ["--batch-size", "2", "--log-every", "1", "--eval-every", "2",
+              "--val-root", "synthetic://val", "--val-batches", "1", *CPU,
+              "--set", "model.image_size=256"]
+    split = ["--set", "mesh.model_parallelism=2"]
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "shape_based_object_detection_torch.cli.train_cli",
+         "--config", "tiny_retinanet", "--steps", "2", *common, *split,
+         "--checkpoint-dir", str(tmp_path / "mp"), "--num-processes", "2",
+         "--process-id", str(i), "--coordinator", f"127.0.0.1:{port}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    sums = [line.split("checksum")[1].strip() for out in outs for line in out.splitlines()
+            if "parameter checksum" in line]
+    assert len(sums) == 2 and sums[0] == sums[1]
+    alone = _train(tmp_path / "alone", *common, steps=2)
+    assert _losses(outs[0]) == _losses(alone) and len(_losses(alone)) == 2
+    val = [line for line in outs[0].splitlines() if "voc-mAP(val)" in line]
+    assert val and val == [line for line in alone.splitlines() if "voc-mAP(val)" in line]
+
+    args = ["--config", "tiny_retinanet", "--protocol", "voc", "--data-root", "synthetic://val",
+            "--max-batches", "2", "--set", ZERO_THRESHOLD, "--set", "data.batch_size=2",
+            "--set", "model.image_size=256", "--checkpoint-dir", str(tmp_path / "mp")]
+    port, procs = _free_port(), []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", RANK=str(rank),
+                   LOCAL_RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "shape_based_object_detection_torch.cli.eval_cli",
+             "--device", "cpu", *args, *split],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert "{" not in outs[1]
+    got = json.loads(outs[0][outs[0].index("{"):])
+    want = json.loads((lambda t: t[t.index("{"):])(_eval(*args)))
+    assert set(got) == set(want) and want["mAP"] > 0
+    for key, value in want.items():
+        assert np.isclose(got[key], value, rtol=0, atol=1e-6, equal_nan=True), key
 
 
 def test_eval_cli_under_torchrun_equals_one_process(tmp_path):

@@ -671,3 +671,78 @@ def test_device_cache_loader_on_the_card_equals_cache_loader(tmp_path):
     for (d, n), (h, m) in zip(padded, host.batches_padded()):
         assert d.images.is_cuda and np.array_equal(d.images.cpu().numpy(), h.images)
         assert np.array_equal(d.boxes, h.boxes) and n == m
+
+
+def _row_ops_rank(rank, store, outs):
+    """One of two gloo ranks sharing card 0: each op on its half of the
+    rows against the unsplit op's rows (forward, and the input's gradient
+    through the halo exchange's backward), relative to the largest value."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from shape_based_object_detection_torch.parallel import RowShard, row_conv2d, row_max_pool2d
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        shard = RowShard(dist.group.WORLD, rank, 2)
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn(2, 16, 64, 40, generator=gen).cuda()
+        errs = {}
+        for k, s, p in ((7, 2, 3), (3, 2, 1), (3, 1, 1), (1, 2, 0), ("pool", 2, 1)):
+            if k == "pool":
+                op = lambda z, sh: row_max_pool2d(z, 3, s, p, sh)  # noqa: E731
+                plain = lambda z: F.max_pool2d(z, 3, s, p)  # noqa: E731
+            else:
+                conv = torch.nn.Conv2d(16, 8, k, s, p)
+                with torch.no_grad():
+                    for t in conv.parameters():
+                        t.copy_(torch.randn(t.shape, generator=gen))
+                conv = conv.cuda()
+                op = lambda z, sh: row_conv2d(conv, z, sh)  # noqa: E731
+                plain = lambda z: F.conv2d(z, conv.weight, conv.bias, s, p)  # noqa: E731
+            full = x.clone().requires_grad_()
+            want = plain(full)
+            w = torch.randn(want.shape, generator=gen).cuda()
+            (want * w).sum().backward()
+            part = shard.split(x).clone().requires_grad_()
+            got = op(part, shard)
+            (got * shard.split(w)).sum().backward()
+            errs[f"{k}/{s}"] = (
+                float((got - shard.split(want)).abs().max() / want.abs().max()),
+                float((part.grad - shard.split(full.grad)).abs().max() / full.grad.abs().max()))
+        torch.save(errs, outs[rank])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_row_ops_on_the_card_equal_the_unsplit_ops(tmp_path):
+    """``row_conv2d`` (7x7/2, 3x3/2, 3x3/1, 1x1/2) and ``row_max_pool2d``
+    on two gloo ranks sharing the card, each on half of the rows, against
+    ``F.conv2d`` / ``F.max_pool2d`` on the whole tensor: forward and input
+    gradient within 1e-5 of the largest value (float32, TF32 off; cuDNN
+    picks its algorithm per shape, so the sums' order may differ)."""
+    _cuda()
+    import time
+
+    import torch.multiprocessing as mp
+
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    ctx = mp.start_processes(_row_ops_rank, args=(str(tmp_path / "store"), outs),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "the ranks did not finish in time"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    for path in outs:
+        errs = torch.load(path)
+        assert len(errs) == 5
+        for name, (fwd, grad) in errs.items():
+            assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)

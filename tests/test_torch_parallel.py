@@ -23,7 +23,8 @@ numbers from that one start, against the reference's own checks
 - the sharded int8 detect (weight-only and full) equals the unsharded one
   within ``test_quantized_detect_sharded_equals_single_device``'s bounds;
 - ``make_mesh_for_batch`` raises on an indivisible batch and model axis,
-  and the model axis and ``spatial_image_sharding`` are not ported.
+  and a model axis over the two ranks lays them out as the reference's
+  mesh (the model axis itself is held by ``tests/test_torch_spatial.py``).
 
 The ranks import only torch and the port; JAX runs in the test process.
 """
@@ -39,12 +40,17 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+# the single-process steps beside the ranks: one intra-op thread each, as
+# the ranks take, so that they do not contend with the other test workers
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 WORLD = 2
 GLOBAL_B = 4
 STEPS = 2
 EVAL_IMAGES = 18
 RANK_TIMEOUT_S = 300
-FOCAL_PRIOR = 0.01  # RetinaNet's classifier prior
 
 # name: (family, loss, augment, train_bn, remat, compared with JAX)
 CASES = {
@@ -138,15 +144,22 @@ def _rank_main(rank, plan_path, out_dir):
         for what, fn in (
                 ("indivisible batch", lambda: make_mesh_for_batch(3, mesh)),
                 ("model_parallelism=3", lambda: make_mesh_for_batch(
-                    GLOBAL_B, mesh, config.MeshConfig(model_parallelism=3))),
-                ("model_parallelism=2", lambda: make_mesh_for_batch(
-                    GLOBAL_B, mesh, config.MeshConfig(model_parallelism=2))),
-                ("spatial_image_sharding", lambda: spatial_image_sharding(mesh))):
+                    GLOBAL_B, mesh, config.MeshConfig(model_parallelism=3)))):
             try:
                 fn()
                 raised[what] = None
             except (ValueError, NotImplementedError) as e:
                 raised[what] = (type(e).__name__, str(e))
+        # the model axis over both ranks: one data index of two rows' ranks
+        axis = config.MeshConfig(model_parallelism=2)
+        spatial = make_mesh("cpu", axis)
+        shard = spatial_image_sharding(spatial, axis)
+        out["model_axis"] = {
+            "per_index": make_mesh_for_batch(GLOBAL_B, mesh, axis),
+            "layout": (spatial.data_index, spatial.model_index, spatial.data_size,
+                       spatial.rows(GLOBAL_B), spatial.data_group is None),
+            "shard": (shard.index, shard.size, shard.group is spatial.model_group),
+        }
         out["raised"] = raised
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -168,33 +181,16 @@ def _configs(name):
         match=match, loss=dict(kind=loss, neg_pos_ratio=3.0))
 
 
-def _weights(j_cfg, seed):
-    """Weights of ``j_cfg.model`` from ``seed`` as a first step meets them
-    (``jax_variables`` with the classifier at its initial scale and, in
-    RetinaNet, the focal prior in its bias, as the packages initialise it),
-    and the port's state dict of them."""
-    from shape_based_object_detection_torch.utils.convert import (
-        state_dict_from_jax_variables,
-    )
-    from tests.torch_parity import jax_variables
-
-    _, variables = jax_variables(j_cfg.model, seed=seed, cls_predict_scale=1.0)
-    if "cls_head" in variables["params"]:
-        bias = variables["params"]["cls_head"]["predict"]["bias"]
-        bias[...] = -np.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR)
-    return variables, state_dict_from_jax_variables(variables)
-
-
 @pytest.fixture(scope="module")
 def dp(tmp_path_factory):
     """The plan (configs, weights, batches) and both ranks' results."""
-    from tests.torch_parity import gt_batch, tiny_configs
+    from tests.torch_parity import focal_weights, gt_batch, jax_train_steps, tiny_configs
 
     root = tmp_path_factory.mktemp("dp")
     cases = {}
     for i, name in enumerate(CASES):
         j_cfg, t_cfg = _configs(name)
-        variables, weights = _weights(j_cfg, seed=20 + i)
+        variables, weights = focal_weights(j_cfg, seed=20 + i)
         size, classes = t_cfg.model.image_size, t_cfg.model.num_classes
         batches = [gt_batch(40 + 10 * i + s, GLOBAL_B, 4, size, classes) for s in range(STEPS)]
         cases[name] = {"cfg": t_cfg, "j_cfg": j_cfg, "variables": variables,
@@ -224,7 +220,7 @@ def dp(tmp_path_factory):
         # the reference's steps, while the ranks run
         for name, case in cases.items():
             if CASES[name][-1]:
-                case["jax"] = _jax_steps(case)
+                case["jax"] = jax_train_steps(case)
         while not ctx.join(timeout=5):
             assert time.monotonic() < deadline, "the ranks did not finish in time"
     finally:
@@ -234,36 +230,6 @@ def dp(tmp_path_factory):
     ranks = [torch.load(str(root / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
     plan["cases"] = cases
     return plan, ranks
-
-
-def _jax_steps(case):
-    """The JAX package's ``train_step`` on the global batches, eagerly: the
-    metrics of each step and the state dict after the last. Under jit, XLA
-    on the CPU changes the reference's matcher on padded GT rows (496
-    qualities and 2 positives of one batch of this file differ from its
-    eager run, whose matches the port's equal bit for bit), and its loss
-    then leaves its own eager value (loss_box by 2.3 %)."""
-    import jax
-
-    from shape_based_object_detection_tpu import train as jax_train
-    from shape_based_object_detection_tpu.models.factory import build_module
-    from shape_based_object_detection_tpu.ops.anchors import anchors_for_model
-    from shape_based_object_detection_torch.utils.convert import (
-        state_dict_from_jax_variables,
-    )
-
-    j_cfg = case["j_cfg"]
-    module = build_module(j_cfg.model)
-    state = jax_train.create_train_state(module, case["variables"], j_cfg)
-    step = jax_train.make_train_step(module, anchors_for_model(j_cfg.model), j_cfg,
-                                     augment=False)
-    metrics = []
-    with jax.disable_jit():
-        for batch in case["batches"]:
-            state, m = step(state, dict(batch))
-            metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, state_dict_from_jax_variables(jax.tree_util.tree_map(
-        np.asarray, {"params": state.params, **state.extra_vars}))
 
 
 def _single_process(case, order=None):
@@ -448,27 +414,34 @@ def test_sharded_int8_detect_equals_unsharded(dp):
                 assert (out.valid == ref.valid).float().mean() > 0.95
 
 
-def test_mesh_for_batch_raises_and_the_model_axis_is_not_ported(dp):
+def test_mesh_for_batch_raises_and_the_model_axis_splits_the_rows(dp):
+    """``make_mesh_for_batch`` raises on an indivisible batch and model
+    axis; with ``model_parallelism=2`` over the two ranks it returns the
+    per-data-index batch (the whole global batch: one data index), both
+    ranks load the same rows, and ``spatial_image_sharding`` gives each its
+    place on the model axis. A single process has no model axis to split."""
     from shape_based_object_detection_torch import config
     from shape_based_object_detection_torch.parallel import (
-        Mesh, make_mesh_for_batch, single_process, spatial_image_sharding,
+        Mesh, make_mesh, make_mesh_for_batch, single_process, spatial_image_sharding,
     )
 
     _, ranks = dp
     assert [r["rows"] for r in ranks] == [slice(0, 2), slice(2, 4)]
-    for r in ranks:
+    for i, r in enumerate(ranks):
         raised = r["raised"]
         assert raised["indivisible batch"][0] == "ValueError"
-        assert "not divisible by the world size 2" in raised["indivisible batch"][1]
+        assert "not divisible by the data-axis size 2" in raised["indivisible batch"][1]
         assert raised["model_parallelism=3"][0] == "ValueError"
-        assert raised["model_parallelism=2"][0] == "NotImplementedError"
-        assert raised["spatial_image_sharding"][0] == "NotImplementedError"
-        assert "ROADMAP.md" in raised["spatial_image_sharding"][1]
+        assert r["model_axis"]["per_index"] == GLOBAL_B
+        assert r["model_axis"]["layout"] == (0, i, 1, slice(0, GLOBAL_B), True)
+        assert r["model_axis"]["shard"] == (i, 2, True)
     alone = single_process("cpu")
     assert make_mesh_for_batch(3, alone) == 3 and alone.rows(3) == slice(0, 3)
     with pytest.raises(ValueError, match="model_parallelism=3"):
         make_mesh_for_batch(4, alone, config.MeshConfig(model_parallelism=3))
     with pytest.raises(ValueError, match="not divisible"):
         make_mesh_for_batch(5, Mesh(None, 1, 2, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spatial_image_sharding(alone)
+    with pytest.raises(ValueError, match="model_parallelism=2"):
+        make_mesh("cpu", config.MeshConfig(model_parallelism=2))
+    shard = spatial_image_sharding(alone)
+    assert (shard.index, shard.size) == (0, 1)

@@ -128,6 +128,46 @@ def assert_matched(got, want, scales):
     assert total > 0
 
 
+FOCAL_PRIOR = 0.01  # RetinaNet's classifier prior
+
+
+def focal_weights(j_cfg, seed):
+    """Weights of ``j_cfg.model`` from ``seed`` as a first step meets them
+    (``jax_variables`` with the classifier at its initial scale and, in
+    RetinaNet, the focal prior in its bias, as the packages initialise it),
+    and the port's state dict of them."""
+    _, variables = jax_variables(j_cfg.model, seed=seed, cls_predict_scale=1.0)
+    if "cls_head" in variables["params"]:
+        bias = variables["params"]["cls_head"]["predict"]["bias"]
+        bias[...] = -np.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR)
+    return variables, state_dict_from_jax_variables(variables)
+
+
+def jax_train_steps(case):
+    """The JAX package's ``train_step`` on ``case["batches"]`` (the global
+    batches), from ``case["variables"]`` under ``case["j_cfg"]``, eagerly:
+    the metrics of each step and the state dict after the last. Under jit,
+    XLA on the CPU changes the reference's matcher on padded GT rows (496
+    qualities and 2 positives of one batch of ``test_torch_parallel.py``
+    differ from its eager run, whose matches the port's equal bit for bit),
+    and its loss then leaves its own eager value (loss_box by 2.3 %)."""
+    from shape_based_object_detection_tpu import train as jax_train
+    from shape_based_object_detection_tpu.ops.anchors import anchors_for_model
+
+    j_cfg = case["j_cfg"]
+    module = build_module(j_cfg.model)
+    state = jax_train.create_train_state(module, case["variables"], j_cfg)
+    step = jax_train.make_train_step(module, anchors_for_model(j_cfg.model), j_cfg,
+                                     augment=False)
+    metrics = []
+    with jax.disable_jit():
+        for batch in case["batches"]:
+            state, m = step(state, dict(batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state_dict_from_jax_variables(jax.tree_util.tree_map(
+        np.asarray, {"params": state.params, **state.extra_vars}))
+
+
 def port_model(cfg, variables):
     """The port's module for ``cfg`` on the CPU with the JAX variables
     loaded (strict), and its anchors."""
