@@ -16,7 +16,12 @@ BatchNorm, and checks them all:
      rows and tied scores, and on the edge cases of ``nms_edge_cases`` in
      ``tests/torch_kernel_cases.py`` (a pick with IoU(p, p) < t filling the remaining slots, t > 1, -0/+0
      ties, no live candidate, N < M); idx, valid and the score bits must be
-     equal, one launch each; above its candidate limit the wrapper raises;
+     equal, one launch each; then the walk route above 4096 candidates per
+     image at (1, 4097, 100), (4, 8192, 100) and (1, 20000, 100) and on the
+     edge cases of ``nms_large_cases`` (the same traps above 4096, sorted
+     input with keys in shared and in global memory, more than 4096 picks),
+     each with its route, scratch bytes and measured peak allocation, and
+     the walk shapes timed;
   3. forward on the card vs the CPU, float32 with TF32 off, one image, the
      same weights; then detect end to end on both, matched detection by
      detection;
@@ -94,6 +99,10 @@ The groups after ``base`` drive the training application (``bn``,
      multi-scale batch; the reference's "matrix" backend name runs K1 once;
      soft-NMS (sigma 0.5) card vs CPU within 1e-6; K1 and soft-NMS times on
      (16, 1000, 100) and on the merge;
+     R50-FPN-512 hflip TTA at b16 bf16 with pre_nms_top_k 2100 and 5000
+     (merges of 4200 and 10000 candidates per image, K1's walk route): K1
+     bit-equal on each merge and once per TTA batch, its time, scratch,
+     peak allocation and the detect's time; the (16, 1000, 100) serving row timed again;
  20. detect b16 bf16 with and without hflip TTA, and the 2-scale batch
      detector, by CUDA events;
  21. the HTTP server over a bf16 b16 Predictor with buckets 1-16, warmed
@@ -167,6 +176,17 @@ ranks of a model group, halo exchanges in every convolution):
  30. R50-FPN-512 b4 on 2 data x 2 model gloo ranks: the same checks, with
      a data group and a model group of two ranks each.
 
+The group ``tools`` drives the checkpoint tools and the examples:
+
+ 31. a config #3 train_cli run (3 steps, a checkpoint each) averaged by
+     tools/average_checkpoints, bit-equal to a numpy float32 average of the
+     same snapshots; eval_cli (K1 once per batch), export_model
+     --checkpoint-dir (its artifact K1 once) and a one-step train_cli
+     resume (K2 once) on the average; tools/convert_checkpoint --mode
+     vgg_backbone on a full-width synthetic torchvision VGG-16 (138 M
+     parameters) and 2 train_cli steps from it with --init-params (K2
+     twice); both examples as subprocesses, exiting 0 with their lines.
+
 Every process the run starts ends before it does: the script is the child
 subreaper of its descendants (a worker whose parent exits is re-parented to
 it), and after the last phase, or a failed one, it stops multiprocessing's
@@ -182,6 +202,7 @@ without printing a result when there is no CUDA device or a phase fails.
     python3 chip_smoke.py --only int8    # the int8 tiers and the artifact
     python3 chip_smoke.py --only data,dist   # the loaders, data parallelism
     python3 chip_smoke.py --only spatial     # the model axis
+    python3 chip_smoke.py --only tools       # the checkpoint tools, the examples
 """
 
 from __future__ import annotations
@@ -420,39 +441,70 @@ def spread(times_ms: np.ndarray) -> str:
             f"{np.percentile(times_ms, 90):.4f} ms, n={len(times_ms)}")
 
 
+WALK_SHAPES = ((1, 4097, 100), (4, 8192, 100), (1, 20000, 100))
+
+
+def k1_peak_bytes(torch, nms_cuda, boxes, scores, valid, t, m) -> int:
+    """Device memory one K1 call (``greedy_nms_cuda`` on class-offset boxes)
+    asks of the caching allocator at its peak, over what was held before
+    it: its scratch, its outputs and any input copies, as requested (the
+    allocator's "requested_bytes", before its rounding)."""
+    key = "requested_bytes.all.peak"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    nms_cuda.greedy_nms_cuda(boxes, scores, valid, t, m)
+    torch.cuda.synchronize()
+    return int(torch.cuda.memory_stats()[key] - before)
+
+
 def phase_kernel(torch, nms, nms_cuda):
     """Kernel vs plain on the card, bit for bit, at the path's shapes and on
-    the edge cases; the candidate limit must raise. Returns the largest
-    |difference| seen over idx and score."""
-    from tests.torch_kernel_cases import nms_bit_equal, nms_edge_cases, nms_inputs
+    the edge cases; then the walk route above 4096 candidates per image at
+    WALK_SHAPES and on the edge cases padded above 4096, each shape with its
+    route, scratch bytes (the kernel's layout, and the peak allocation
+    measured around one call) and times. Returns (the largest |difference|
+    seen over idx and score, K1's rows for the walk route)."""
+    from tests.torch_kernel_cases import (
+        nms_bit_equal, nms_edge_cases, nms_inputs, nms_large_cases,
+    )
 
     rng = np.random.default_rng(0)
     worst = 0.0
     cases = []
-    for b, n, m in ((16, 1000, 100), (16, 400, 200), (8, 2000, 100)):
+    for b, n, m in ((16, 1000, 100), (16, 400, 200), (8, 2000, 100)) + WALK_SHAPES:
         boxes, scores, cls, valid = (torch.from_numpy(a).cuda()
                                      for a in nms_inputs(rng, b, n))
         cases.append((f"(B, N, M)=({b}, {n}, {m})", nms.class_offset_boxes(boxes, cls),
                       scores, valid, 0.5, m))
-    for name, (boxes, scores, valid, t, m) in nms_edge_cases().items():
+    for name, (boxes, scores, valid, t, m) in {**nms_edge_cases(), **{
+            f"{k} (padded above 4096)": v for k, v in nms_large_cases().items()}}.items():
         cases.append((f"{name} (B, N, M)=({scores.shape[0]}, {scores.shape[1]}, {m}), "
                       f"t={t}", *(torch.from_numpy(a).cuda() for a in (boxes, scores, valid)),
                       t, m))
     for name, boxes, scores, valid, t, m in cases:
         same, err, kept = nms_bit_equal(boxes, scores, valid, t, m)
         worst = max(worst, err)
-        log(f"[kernel] nms_greedy {name}: bit-equal={same}, kept={kept}")
+        b, n = scores.shape
+        scratch = nms_cuda.scratch_bytes(b, n, m)
+        peak = k1_peak_bytes(torch, nms_cuda, boxes, scores, valid, t, m)
+        log(f"[kernel] nms_greedy {name}: route {nms_cuda.route(n)}, scratch {scratch} bytes "
+            f"({scratch / (b * n):.1f} per candidate; the bitmask alone would be "
+            f"{b * n * -(-n // 64) * 8}), peak allocation of one call {peak} bytes, "
+            f"bit-equal={same}, kept={kept}")
         if not same:
             raise RuntimeError(f"nms_greedy differs from the plain version: {name}")
-    limit = nms_cuda.MAX_CANDIDATES
-    big = torch.zeros(1, limit + 1, 4, device="cuda")
-    try:
-        nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
-    except ValueError as e:
-        log(f"[kernel] nms_greedy at N = {limit + 1} raises: {e}")
-    else:
-        raise RuntimeError(f"nms_greedy took {limit + 1} candidates, above its limit")
-    return worst
+    rows = {}
+    for (b, n, m), (_, boxes, scores, valid, t, _) in zip(WALK_SHAPES, cases[3:]):
+        det = argparse_ns(max_detections=m, nms_iou_threshold=t)
+        no_class = torch.zeros_like(scores, dtype=torch.int32)  # the boxes are shifted
+        timing = nms_timing(nms, nms_cuda, (boxes, scores, no_class, valid), det,
+                            f"random candidates (route {nms_cuda.route(n)})")
+        tag = f"walk_{b}x{n}x{m}"
+        rows.update({f"{tag}_{k}": v for k, v in timing.items()})
+        rows[f"{tag}_peak_alloc_bytes"] = k1_peak_bytes(torch, nms_cuda, boxes, scores,
+                                                        valid, t, m)
+    return worst, rows
 
 
 def matched(got, want, scale=1.0):
@@ -2385,6 +2437,60 @@ def phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda, reset_
     return out, k1
 
 
+def phase_serve_large_merges(torch, config, build_model, detection, nms, nms_cuda,
+                             reset_counts):
+    """R50-FPN-512 hflip TTA at b16 in bf16 (random weights from seed 1,
+    score threshold 0) with pre_nms_top_k 2100 and 5000: merges of 4200 and
+    10000 candidates per image, which run K1's walk route. K1 bit-equal to
+    its plain version on each merge and once per TTA batch, its time (CUDA
+    events, profiler device time) beside its bound and scratch; then the
+    (16, 1000, 100) serving row, the same model's plain detect candidates on
+    the bitmask route, timed again in this run."""
+    from shape_based_object_detection_torch.detection import make_detect_fn
+
+    out, k1 = {}, {}
+    base = serving_config(config, "bfloat16").model
+    module, anchors = build_model(base, device="cuda",
+                                  generator=torch.Generator().manual_seed(1))
+    images = torch.from_numpy(np.random.default_rng(23).integers(
+        0, 256, (16, base.image_size, base.image_size, 3), dtype=np.uint8)).cuda()
+    for k in (2100, 5000):
+        cfg = dataclasses.replace(base, detect=dataclasses.replace(
+            base.detect, tta_hflip=True, pre_nms_top_k=k))
+        det, tag = cfg.detect, f"tta{2 * k}"
+        cands = merge_candidates(torch, detection, module, anchors, cfg, images)
+        name = f"the R50 hflip merge at b16 bf16, pre_nms_top_k {k}"
+        k1[f"{tag}_max_abs_err"] = k1_on(torch, nms, cands, det, name)
+        detect = make_detect_fn(module, anchors, cfg, device="cuda")
+        reset_counts()
+        detect(images)
+        torch.cuda.synchronize()
+        k1[f"{tag}_launches"] = nms_cuda.launches
+        if nms_cuda.launches != 1:
+            raise RuntimeError(f"hflip TTA detect at pre_nms_top_k {k} launched the NMS "
+                               f"kernel {nms_cuda.launches} times for 1 batch")
+        timing = nms_timing(nms, nms_cuda, cands, det,
+                            f"{name} (route {nms_cuda.route(2 * k)})")
+        k1.update({f"{tag}_{key}": v for key, v in timing.items()})
+        k1[f"{tag}_peak_alloc_bytes"] = k1_peak_bytes(
+            torch, nms_cuda, nms.class_offset_boxes(cands[0], cands[2]), cands[1], cands[3],
+            det.nms_iou_threshold, det.max_detections)
+        times = cuda_times_ms(lambda: detect(images), iters=10)
+        out[f"detect_hflip_top{k}_b16_bf16_median_ms"] = float(np.median(times))
+        log(f"[timing] hflip TTA detect b16 bf16 at pre_nms_top_k {k} ({2 * k} candidates "
+            f"into K1's {nms_cuda.route(2 * k)} route), CUDA events: {spread(times)}; K1 "
+            f"launches per batch {k1[f'{tag}_launches']}, scratch "
+            f"{nms_cuda.scratch_bytes(16, 2 * k, det.max_detections)} bytes, peak allocation "
+            f"of one K1 call {k1[f'{tag}_peak_alloc_bytes']} bytes")
+    with torch.inference_mode():
+        x = detection.image_lib.normalize_images(images).permute(0, 3, 1, 2)
+        cands = detection.select_candidates(*module(x), anchors, base)
+    timing = nms_timing(nms, nms_cuda, cands, base.detect,
+                        "the serving path's candidates (route bitmask), beside the merges")
+    k1.update({f"serve_row_{key}": v for key, v in timing.items()})
+    return out, k1
+
+
 def phase_serve_multiscale(torch, config, build_model, serving, nms, nms_cuda, reset_counts):
     """R50-FPN-512 at b16 (random weights from seed 0): the 2-scale batch
     detector launches K1 S + 1 times per batch, and K1 is bit-equal on its
@@ -4153,8 +4259,184 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
     return out, k1, k2
 
 
+def host_average(snaps):
+    """The float leaves of checkpoint snapshots (oldest first) averaged with
+    numpy in float32, ``0 + l0 + l1 + ...`` divided by the count: what the
+    averaged checkpoint is held to. {part: {name: array}}."""
+    out = {}
+    for part in ("params", "buffers", "ema"):
+        if snaps[-1][part] is None:
+            continue
+        out[part] = {}
+        for k, t in snaps[-1][part].items():
+            if t.is_floating_point():
+                if t.dtype.itemsize != 4:
+                    raise RuntimeError(f"{part} {k} is {t.dtype}: the check averages float32")
+                acc = 0
+                for snap in snaps:
+                    acc = acc + snap[part][k].numpy()
+                out[part][k] = acc / np.float32(len(snaps))
+    return out
+
+
+EXAMPLES = {  # module: (arguments, lines its output must hold)
+    "demo": ([], ("overfitting 150 steps", "  step 0: loss ", "voc mAP@0.5: ",
+                  "demo_0.png", "demo_1.png")),
+    "serving_quickstart": ([], ("predictor  image 0: ", "submit/poll: ", "quantized  : ",
+                                "full-int8  : ", "artifact   : ", "output boxes (2, 100, 4)")),
+}
+
+
+def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_counts, workdir):
+    """The checkpoint tools and the examples on the card: a config #3
+    train_cli run (SSD-512 b32 fp32, 3 steps, a checkpoint each) averaged by
+    tools/average_checkpoints over its last 3 and held bit for bit to a
+    numpy average of the same snapshots; eval_cli on the average (K1 once
+    per batch); export_model --checkpoint-dir on it and the artifact run
+    once (K1 once); a one-step train_cli resume from it (K2 once);
+    tools/convert_checkpoint --mode vgg_backbone on a full-width synthetic
+    torchvision VGG-16, then 2 train_cli steps from the file with
+    --init-params (K2 twice); both examples as subprocesses, each exiting 0
+    with its lines. Returns (results, K1 rows, K2 rows)."""
+    import subprocess
+
+    from shape_based_object_detection_torch.checkpoint import CheckpointManager
+    from shape_based_object_detection_torch.export import load_artifact
+    from shape_based_object_detection_torch.tools import (
+        average_checkpoints, convert_checkpoint, export_model,
+    )
+    from tests.torch_kernel_cases import torchvision_vgg16
+
+    out, k1, k2, secs = {}, {}, {}, {}
+    config3 = ["--config", "config3_ssd512_voc_train"]
+    train = [*config3, "--data-root", APP_TRAIN, "--workers", "8", "--log-every", "1"]
+    run, avg = os.path.join(workdir, "tools_run"), os.path.join(workdir, "tools_avg")
+
+    t = time.perf_counter()
+    run_cli(cli_train.main, [*train, "--steps", "3", "--set", "train.checkpoint_every=1",
+                             "--checkpoint-dir", run])
+    secs["train_3_steps"] = time.perf_counter() - t
+    steps = CheckpointManager(run).all_steps()
+    if steps != [1, 2, 3]:
+        raise RuntimeError(f"the config #3 run kept checkpoints {steps}, not [1, 2, 3]")
+    t = time.perf_counter()
+    run_cli(average_checkpoints.main, [*config3, "--checkpoint-dir", run, "--last", "3",
+                                       "--out", avg])
+    secs["average"] = time.perf_counter() - t
+    snaps = [CheckpointManager(run).read(step) for step in steps]
+    got = CheckpointManager(avg).read(3)
+    want = host_average(snaps)
+    differ = [f"{part} {k}" for part, leaves in want.items() for k, v in leaves.items()
+              if not np.array_equal(got[part][k].numpy().view(np.int32), v.view(np.int32))]
+    newest = snaps[-1]["opt"]
+    opt_same = all(torch.equal(got["opt"][key][k], v) for key in ("trace", "mu", "nu", "acc")
+                   if newest[key] is not None for k, v in newest[key].items())
+    leaves = sum(len(v) for v in want.values())
+    log(f"[tools] average_checkpoints over steps {steps} of config #3 ({leaves} float leaves, "
+        f"{sum(v.size for v in want['params'].values())} parameters; EMA "
+        f"{'averaged' if 'ema' in want else 'absent'}): bit-equal to the numpy float32 "
+        f"average={not differ}, the optimizer state the newest's={opt_same}, step "
+        f"{got['step']}")
+    if differ or not opt_same or got["step"] != 3:
+        raise RuntimeError(f"the averaged checkpoint differs from the host average: {differ[:5]}")
+    del snaps, got
+
+    reset_counts()
+    t = time.perf_counter()
+    text = run_cli(cli_eval.main, [*config3, "--data-root", APP_VAL, "--checkpoint-dir", avg,
+                                   "--set", "model.detect.score_threshold=0.0"])
+    torch.cuda.synchronize()
+    secs["eval_cli"] = time.perf_counter() - t
+    k1["tools_eval_launches"] = nms_cuda.launches
+    if nms_cuda.launches != 2 or "mAP" not in text:
+        raise RuntimeError(f"eval_cli on the averaged checkpoint launched K1 "
+                           f"{nms_cuda.launches} times for 2 batches: {text[-300:]}")
+
+    artifact = os.path.join(workdir, "tools_avg.sbdx")
+    t = time.perf_counter()
+    run_cli(export_model.main, [*config3, "--checkpoint-dir", avg, "--batch-size", "2",
+                                "--out", artifact])
+    secs["export"] = time.perf_counter() - t
+    loaded = load_artifact(artifact)
+    reset_counts()
+    det = loaded(np.zeros((2, 512, 512, 3), np.uint8))
+    torch.cuda.synchronize()
+    k1["tools_artifact_launches"] = nms_cuda.launches
+    if nms_cuda.launches != 1 or tuple(det.boxes.shape) != (2, 200, 4):
+        raise RuntimeError(f"the averaged checkpoint's artifact launched K1 "
+                           f"{nms_cuda.launches} times, boxes {tuple(det.boxes.shape)}")
+    del loaded
+
+    reset_counts()
+    t = time.perf_counter()
+    text = run_cli(cli_train.main, [*train, "--steps", "4", "--checkpoint-dir", avg])
+    torch.cuda.synchronize()
+    secs["resume_1_step"] = time.perf_counter() - t
+    k2["tools_resume_launches"] = matching_cuda.launches
+    if (matching_cuda.launches != 1 or "restored checkpoint at step 3" not in text
+            or "done at step 4" not in text):
+        raise RuntimeError(f"train_cli did not resume from the average for one step: "
+                           f"{text[-300:]}")
+
+    t = time.perf_counter()
+    vgg = torchvision_vgg16(np.random.default_rng(31))
+    with torch.no_grad():
+        for key, v in vgg.items():  # lecun-normal, as trained weights are scaled
+            if key.endswith("weight"):
+                v.mul_(1.0 / np.sqrt(v[0].numel()))
+    vgg_path, init = os.path.join(workdir, "vgg16.pth"), os.path.join(workdir, "vgg_init.pt")
+    torch.save(vgg, vgg_path)
+    secs["write_vgg16"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_cli(convert_checkpoint.main, ["--model", "config3_ssd512_voc_train", "--torch-ckpt",
+                                      vgg_path, "--mode", "vgg_backbone", "--out", init])
+    secs["convert"] = time.perf_counter() - t
+    conv = torch.load(init, weights_only=True)
+    fc6 = vgg["classifier.0.weight"].reshape(4096, 512, 7, 7)[::4, :, ::3, ::3]
+    merged = (torch.equal(conv["vgg.conv1_1.weight"], vgg["features.0.weight"])
+              and torch.equal(conv["vgg.conv6.weight"], fc6))
+    n_vgg = sum(v.numel() for v in vgg.values())
+    del vgg, conv, fc6
+    reset_counts()
+    t = time.perf_counter()
+    text = run_cli(cli_train.main, [*train, "--steps", "2", "--init-params", init,
+                                    "--checkpoint-dir", os.path.join(workdir, "tools_init")])
+    torch.cuda.synchronize()
+    secs["init_params_2_steps"] = time.perf_counter() - t
+    k2["tools_init_params_launches"] = matching_cuda.launches
+    log(f"[tools] convert_checkpoint --mode vgg_backbone: a synthetic torchvision VGG-16 of "
+        f"{n_vgg} parameters ({os.path.getsize(vgg_path)} bytes) into config #3's SSD-512 "
+        f"({os.path.getsize(init)} bytes written), conv1_1 and the decimated conv6 "
+        f"equal={merged}; train_cli --init-params: K2 launches {matching_cuda.launches} "
+        f"in 2 steps")
+    if (not merged or matching_cuda.launches != 2 or "initialized params from" not in text
+            or "done at step 2" not in text):
+        raise RuntimeError(f"the converted VGG-16 did not train 2 steps: {text[-300:]}")
+
+    for name, (args, expect) in EXAMPLES.items():
+        folder = os.path.join(workdir, f"example_{name}")
+        os.makedirs(folder)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"shape_based_object_detection_torch.examples.{name}",
+             *args, *(["--out", folder] if name == "demo" else [])],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs[f"example_{name}"] = time.perf_counter() - t
+        missing = [e for e in expect if e not in proc.stdout]
+        for line in proc.stdout.splitlines():
+            log(f"[{name}] {line}")
+        if proc.returncode != 0 or missing:
+            raise RuntimeError(f"example {name} exited {proc.returncode}, missing {missing}: "
+                               f"{proc.stderr[-2000:]}")
+    log(f"[tools] seconds per part ({nvidia_smi_line()}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    out.update({f"tools_{k}_s": v for k, v in secs.items()})
+    return out, k1, k2
+
+
 PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist",
-          "spatial")
+          "spatial",
+          "tools")
 
 
 def main() -> int:
@@ -4241,7 +4523,7 @@ def run_phases(torch, want, only, t0, workdir):
 
     results, k1, k2 = {}, {}, {}
     if want("base"):
-        nms_err = phase_kernel(torch, nms, nms_cuda)
+        nms_err, walk_rows = phase_kernel(torch, nms, nms_cuda)
         phase_forward(torch, config, build_model, make_detect_fn)
         nms_launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection,
                                           reset_counts)
@@ -4309,7 +4591,10 @@ def run_phases(torch, want, only, t0, workdir):
             # the SSD300 serving path's launches, and K1 at (16, 400, 200) there
             "ssd_launches": ssd_nms_launches,
             "ssd_max_abs_err": ssd_nms["max_abs_err"],
-            **{f"ssd_{k}": v for k, v in ssd_nms.items() if k != "max_abs_err"}})
+            **{f"ssd_{k}": v for k, v in ssd_nms.items() if k != "max_abs_err"},
+            # the walk route (N > 4096) at (1, 4097, 100), (4, 8192, 100) and
+            # (1, 20000, 100): times, bound, peak allocation of one call
+            **walk_rows})
         k2.update({
             "launches": match_launches,  # the training path's
             "bit_equal": True,  # assignments; phase_match_kernel raises otherwise
@@ -4364,6 +4649,10 @@ def run_phases(torch, want, only, t0, workdir):
         serve_out, serve_k1 = phase_serve_nms(torch, config, build_model, detection, nms,
                                               nms_cuda, reset_counts)
         results.update(serve_out)
+        large_out, large_k1 = phase_serve_large_merges(torch, config, build_model, detection,
+                                                       nms, nms_cuda, reset_counts)
+        results.update(large_out)
+        serve_k1.update(large_k1)
         ms_out, ms_k1 = phase_serve_multiscale(torch, config, build_model, serving, nms,
                                                nms_cuda, reset_counts)
         results.update(ms_out)
@@ -4409,6 +4698,14 @@ def run_phases(torch, want, only, t0, workdir):
         results.update(spatial_out)
         k1.update(spatial_k1)
         k2.update(spatial_k2)
+
+    # the checkpoint tools and the examples
+    if want("tools"):
+        tools_out, tools_k1, tools_k2 = phase_tools(torch, cli_train, cli_eval, nms_cuda,
+                                                    matching_cuda, reset_counts, workdir)
+        results.update(tools_out)
+        k1.update(tools_k1)
+        k2.update(tools_k2)
 
     log(json.dumps(results))
     if only:

@@ -2,13 +2,23 @@
 ``csrc/nms_greedy.cu``, which replaces the JAX package's Pallas kernel
 (``ops/nms_pallas.py``).
 
-The kernel sorts each image's live candidates, builds their IoU bitmask
-over the whole card and sweeps it with one warp per image, and reproduces
-``ops/nms.greedy_nms`` bit for bit. These functions take CUDA tensors only:
-a CPU tensor raises (the plain version in ``ops/nms.py`` is what runs on the
-CPU, chosen by the caller from the tensors' device). Nothing here falls
-back. The kernel is built at first use (``utils/native.py``); importing this
-module needs neither nvcc nor a card.
+The kernel sorts each image's live candidates and picks by one of two
+routes, chosen by N (candidates per image) inside the launch:
+
+- the bitmask route, N <= ``BITMASK_MAX_CANDIDATES``: the sort in static
+  shared memory, the IoU bitmask over the whole card, and a sweep with one
+  warp per image (three launches);
+- the walk route, above: the sort's keys in dynamic shared memory or, past
+  16384, in global scratch, then one block per image that tests each word of
+  64 sorted candidates against the picks kept so far, which it keeps in
+  global scratch (two launches). Its scratch is linear in N, where the
+  bitmask is quadratic.
+
+Both reproduce ``ops.nms.greedy_nms`` bit for bit. These functions take CUDA
+tensors only: a CPU tensor raises (the plain version in ``ops/nms.py`` is
+what runs on the CPU, chosen by the caller from the tensors' device).
+Nothing here falls back. The kernel is built at first use
+(``utils/native.py``); importing this module needs neither nvcc nor a card.
 
 Importing it also registers the PyTorch op ``sbd::greedy_nms``, which
 dispatches by device: the kernel for CUDA tensors, ``ops.nms.greedy_nms``
@@ -33,11 +43,15 @@ from shape_based_object_detection_torch.utils import native
 # caller that wants to see whether a run went through it).
 launches = 0
 
-# The most candidates per image the kernel takes (kMaxN in nms_greedy.cu):
-# its sort holds one 64-bit key per candidate, padded to a power of two, in
-# 32 KB of static shared memory, and at that N the IoU bitmask is
-# N * ceil(N / 64) * 8 bytes = 2 MiB per image.
-MAX_CANDIDATES = 4096
+# The most candidates per image of the bitmask route (kMaxN in
+# nms_greedy.cu, which decides the route; ``route`` asks it): its sort holds
+# one 64-bit key per candidate, padded to a power of two, in 32 KB of static
+# shared memory, and at that N the IoU bitmask is N * ceil(N / 64) * 8 bytes
+# = 2 MiB per image. Above it the walk route runs.
+BITMASK_MAX_CANDIDATES = 4096
+# The most candidates per image either route takes (kLargestN): the kernels
+# index candidates with int.
+LARGEST_N = 1 << 30
 
 _ALIGN = 16  # the kernel reads and writes boxes as float4
 
@@ -47,10 +61,26 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_sbd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nms_greedy_launch.argtypes = [p, p, p, i, i, i, ctypes.c_float,
-                                          p, p, p, p, p, p, p, p]
+                                          p, p, p, p, p]
         lib.nms_greedy_launch.restype = i
+        lib.nms_greedy_scratch_bytes.argtypes = [i, i, i]
+        lib.nms_greedy_scratch_bytes.restype = ctypes.c_size_t
+        lib.nms_greedy_route.argtypes = [i]
+        lib.nms_greedy_route.restype = i
         lib._sbd_typed = True
     return lib
+
+
+def route(n: int) -> str:
+    """The kernel's route for ``n`` candidates per image, as the launch
+    chooses it: "bitmask" or "walk" (builds the kernel)."""
+    return ("bitmask", "walk")[_lib().nms_greedy_route(n)]
+
+
+def scratch_bytes(b: int, n: int, m: int) -> int:
+    """Bytes of device scratch one call at (B, N, M) allocates (the kernel's
+    own layout; builds the kernel)."""
+    return int(_lib().nms_greedy_scratch_bytes(b, n, m))
 
 
 def greedy_nms_cuda(
@@ -60,11 +90,14 @@ def greedy_nms_cuda(
     iou_threshold: float,
     max_detections: int,
 ) -> NMSResult:
-    """Batched single-class greedy NMS in one call of the kernel (its sort,
-    mask and sweep stages, launched together). Returns (indices int32,
-    scores float32, valid bool), each (B, max_detections), equal to
-    ``ops.nms.greedy_nms`` on the same inputs. Launches on the current
-    stream and does not synchronise."""
+    """Batched single-class greedy NMS in one call of the kernel: the
+    bitmask route's sort, mask and sweep for N <= ``BITMASK_MAX_CANDIDATES``
+    candidates per image, the walk route's sort and walk above, launched
+    together. Returns (indices int32, scores float32, valid bool), each (B,
+    max_detections), equal to ``ops.nms.greedy_nms`` on the same inputs.
+    Launches on the current stream and does not synchronise. Raises on
+    malformed input only: not CUDA tensors, shapes that disagree, N or
+    max_detections below 1, N above ``LARGEST_N``."""
     global launches
     if not (boxes_xyxy.is_cuda and scores.is_cuda and valid.is_cuda):
         raise ValueError(
@@ -80,9 +113,9 @@ def greedy_nms_cuda(
     if n < 1 or max_detections < 1:
         raise ValueError(f"need N >= 1 and max_detections >= 1, got {n}, "
                          f"{max_detections}")
-    if n > MAX_CANDIDATES:
-        raise ValueError(f"{n} candidates do not fit the kernel's shared memory "
-                         f"(at most {MAX_CANDIDATES} per image)")
+    if n > LARGEST_N:
+        raise ValueError(f"{n} candidates per image: the kernel indexes at most "
+                         f"{LARGEST_N}")
     lib = _lib()
     device = boxes_xyxy.device
     with torch.cuda.device(device):
@@ -96,20 +129,15 @@ def greedy_nms_cuda(
         idx = torch.empty((b, max_detections), dtype=torch.int32, device=device)
         sc = torch.empty((b, max_detections), dtype=torch.float32, device=device)
         ok = torch.empty((b, max_detections), dtype=torch.bool, device=device)
-        # scratch, one buffer: sorted boxes (B, N) float4, the IoU bitmask
-        # (B, N, ceil(N / 64)) uint64, the order (B, N) int32, live counts (B)
-        sizes = (b * n * 16, b * n * ((n + 63) // 64) * 8, b * n * 4, b * 4)
-        offsets, total = [], 0
-        for size in sizes:
-            offsets.append(total)
-            total += -(-size // _ALIGN) * _ALIGN
-        scratch = torch.empty(total, dtype=torch.uint8, device=device)
-        sorted_boxes, mask, order, n_live = (scratch.data_ptr() + o for o in offsets)
+        # one buffer, laid out by the kernel: the sorted boxes, order and
+        # live counts, then the bitmask route's mask or the walk route's
+        # picks and, where they do not fit shared memory, its keys
+        scratch = torch.empty(lib.nms_greedy_scratch_bytes(b, n, max_detections),
+                              dtype=torch.uint8, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nms_greedy_launch(
             boxes.data_ptr(), scores_f.data_ptr(), valid_b.data_ptr(),
-            b, n, max_detections, float(iou_threshold),
-            order, sorted_boxes, n_live, mask,
+            b, n, max_detections, float(iou_threshold), scratch.data_ptr(),
             idx.data_ptr(), sc.data_ptr(), ok.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nms_greedy kernel launch failed: CUDA error {err}")

@@ -12,7 +12,8 @@ import torch
 
 from shape_based_object_detection_torch.ops import nms
 from tests.torch_kernel_cases import (
-    match_check, match_edge_cases, nms_bit_equal, nms_edge_cases,
+    match_check, match_edge_cases, nms_bit_equal, nms_edge_cases, nms_large_cases,
+    torchvision_vgg16,
 )
 
 
@@ -61,22 +62,42 @@ def test_nms_kernel_bit_equal_to_plain(b, n, m):
 
 
 @pytest.mark.cuda
-def test_nms_kernel_takes_strided_and_refuses_oversized_inputs():
+def test_nms_kernel_takes_strided_inputs_and_any_n():
+    """A strided input; the bitmask route's largest N; the walk route above
+    it at N = 4097, 8192 (keys in shared memory) and 20000 (keys in global
+    scratch): idx, valid and score bits equal to the plain version, one
+    launch each, with scratch linear in N on the walk route."""
     nms_cuda = _cuda()
     shifted, scores, _, valid = _inputs(0, 4, 300)
     strided = torch.cat([shifted, shifted], -1)[..., 4:]  # not contiguous
     got = nms_cuda.greedy_nms_cuda(strided, scores, valid, 0.45, 50)
     want = nms.greedy_nms(shifted, scores, valid, 0.45, 50)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    limit = nms_cuda.MAX_CANDIDATES
-    assert limit >= 2000
-    full, scores, _, valid = _inputs(1, 1, limit)  # the largest N it takes
-    same, _, kept = nms_bit_equal(full, scores, valid, 0.5, 100)
-    assert same and kept == 100
-    for n in (limit + 1, 20000):
-        big = torch.zeros(1, n, 4, device="cuda")
-        with pytest.raises(ValueError, match="shared memory"):
-            nms_cuda.greedy_nms_cuda(big, big[..., 0], big[..., 0] > 0, 0.5, 10)
+    limit = nms_cuda.BITMASK_MAX_CANDIDATES
+    assert limit >= 2000 and nms_cuda.route(limit) == "bitmask"
+    for n in (limit, limit + 1, 8192, 20000):
+        full, scores, _, valid = _inputs(n, 1, n)
+        same, _, kept = nms_bit_equal(full, scores, valid, 0.5, 100)
+        assert same and kept == 100, n
+        if n > limit:
+            assert nms_cuda.route(n) == "walk"
+            # sorted boxes, order, keys (padded to a power of two), counts,
+            # the kept picks
+            assert nms_cuda.scratch_bytes(1, n, 100) <= 40 * n + 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(nms_large_cases()))
+def test_nms_kernel_large_cases(name):
+    """The walk route on the traps above 4096 candidates (a fill after 63
+    removed words, -0/+0 ties, fewer live than M, sorted input with its
+    keys in shared memory and in global scratch, more than 4096 picks):
+    idx, valid and score bits equal to the plain version, one launch."""
+    _cuda()
+    boxes, scores, valid, t, m = (torch.from_numpy(x).cuda() if isinstance(x, np.ndarray)
+                                  else x for x in nms_large_cases()[name])
+    same, _, _ = nms_bit_equal(boxes, scores, valid, t, m)
+    assert same
 
 
 @pytest.mark.cuda
@@ -154,10 +175,10 @@ def test_soft_nms_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.cuda
-def test_tta_merge_above_the_kernel_limit_raises():
-    """hflip TTA with pre_nms_top_k above 2048 merges more than the
-    kernel's 4096 candidates per image: the wrapper raises, naming the
-    limit, and nothing falls back."""
+def test_tta_merge_above_4096_equals_plain():
+    """hflip TTA with pre_nms_top_k 2100 merges 4200 candidates per image,
+    above the bitmask route: detect launches the kernel once, and the
+    kernel equals the plain version bit for bit on the merge."""
     nms_cuda = _cuda()
     from shape_based_object_detection_torch import config, detection
     from shape_based_object_detection_torch.models.factory import build_model
@@ -166,11 +187,19 @@ def test_tta_merge_above_the_kernel_limit_raises():
     cfg = config.dataclasses.replace(cfg, detect=config.dataclasses.replace(
         cfg.detect, score_threshold=0.0, tta_hflip=True, pre_nms_top_k=2100))
     module, anchors = build_model(cfg)
-    images = np.zeros((1, 128, 128, 3), np.uint8)
+    images = np.random.default_rng(9).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
     before = nms_cuda.launches
-    with pytest.raises(ValueError, match=str(nms_cuda.MAX_CANDIDATES)):
-        detection.make_detect_fn(module, anchors, cfg)(images)
-    assert nms_cuda.launches == before
+    det = detection.make_detect_fn(module, anchors, cfg)(images)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches == before + 1 and bool(det.valid.any())
+    x = detection.image_lib.normalize_images(torch.from_numpy(images).cuda())
+    with torch.inference_mode():
+        boxes, scores, cls, valid = detection.tta_hflip_candidates(
+            *module(torch.cat([x, x.flip(2)]).permute(0, 3, 1, 2)), anchors, cfg)
+    assert scores.shape == (2, 4200)
+    same, _, kept = nms_bit_equal(nms.class_offset_boxes(boxes, cls), scores, valid,
+                                  cfg.detect.nms_iou_threshold, cfg.detect.max_detections)
+    assert same and kept > 0
 
 
 @pytest.mark.cuda
@@ -746,3 +775,82 @@ def test_row_ops_on_the_card_equal_the_unsplit_ops(tmp_path):
         assert len(errs) == 5
         for name, (fwd, grad) in errs.items():
             assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)
+
+
+@pytest.mark.cuda
+def test_average_checkpoints_on_the_card(tmp_path, capsys):
+    """tools/average_checkpoints on a card run's last three checkpoints:
+    equal to the host average of the same snapshots to the bit; eval_cli
+    restores the result (K1 once per batch) and train_cli resumes from it
+    (K2 once per step)."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch.checkpoint import CheckpointManager
+    from shape_based_object_detection_torch.cli import eval_cli, train_cli
+    from shape_based_object_detection_torch.ops import matching_cuda
+    from shape_based_object_detection_torch.tools import average_checkpoints
+
+    ckpt, out = str(tmp_path / "ckpt"), str(tmp_path / "avg")
+    train = ["--config", "tiny_retinanet", "--workers", "0", "--set",
+             "train.checkpoint_every=1", "--set", "train.ema_decay=0.9"]
+    train_cli.main([*train, "--steps", "3", "--checkpoint-dir", ckpt])
+    average_checkpoints.main(["--config", "tiny_retinanet", "--checkpoint-dir", ckpt,
+                              "--out", out, "--last", "3", "--set", "train.ema_decay=0.9"])
+    mgr = CheckpointManager(ckpt)
+    want = average_checkpoints.average_snapshots([mgr.read(s) for s in (1, 2, 3)])
+    got = CheckpointManager(out).read(3)
+    for part in ("params", "buffers", "ema"):
+        assert all(torch.equal(got[part][k], v) for k, v in want[part].items()), part
+    capsys.readouterr()
+    k1 = nms_cuda.launches
+    eval_cli.main(["--config", "tiny_retinanet", "--checkpoint-dir", out, "--max-batches", "2"])
+    assert nms_cuda.launches - k1 == 2 and "mAP" in capsys.readouterr().out
+    k2 = matching_cuda.launches
+    train_cli.main([*train, "--steps", "4", "--checkpoint-dir", out])
+    printed = capsys.readouterr().out
+    assert "restored checkpoint at step 3" in printed and "done at step 4" in printed
+    assert matching_cuda.launches - k2 == 1
+
+
+@pytest.mark.cuda
+def test_convert_checkpoint_on_the_card(tmp_path, capsys):
+    """tools/convert_checkpoint --mode vgg_backbone on the card (a synthetic
+    torchvision VGG-16 at the tiny SSD's widths), then two train_cli steps
+    from the file with --init-params (K2 once per step)."""
+    _cuda()
+    from shape_based_object_detection_torch.cli import train_cli
+    from shape_based_object_detection_torch.ops import matching_cuda
+    from shape_based_object_detection_torch.tools import convert_checkpoint
+
+    sd = torchvision_vgg16(np.random.default_rng(4), width=64, fc=512)
+    torch.save(sd, tmp_path / "vgg16.pth")
+    out = str(tmp_path / "init.pt")
+    convert_checkpoint.main(["--model", "tiny_ssd", "--torch-ckpt",
+                             str(tmp_path / "vgg16.pth"), "--mode", "vgg_backbone",
+                             "--out", out])
+    got = torch.load(out, weights_only=True)
+    assert torch.equal(got["vgg.conv1_1.weight"], sd["features.0.weight"])
+    k2 = matching_cuda.launches
+    train_cli.main(["--config", "tiny_ssd", "--steps", "2", "--workers", "0",
+                    "--checkpoint-dir", str(tmp_path / "ckpt"), "--init-params", out])
+    printed = capsys.readouterr().out
+    assert "initialized params from" in printed and "done at step 2" in printed
+    assert matching_cuda.launches - k2 == 2
+
+
+@pytest.mark.cuda
+def test_examples_on_the_card(tmp_path, capsys):
+    """Both examples on the card: the demo's steps run K2 and its eval K1;
+    the quickstart's Predictors and artifact run K1."""
+    nms_cuda = _cuda()
+    from shape_based_object_detection_torch.examples import demo, serving_quickstart
+    from shape_based_object_detection_torch.ops import matching_cuda
+
+    k1, k2 = nms_cuda.launches, matching_cuda.launches
+    demo.main(["--steps", "5", "--out", str(tmp_path)])
+    assert matching_cuda.launches - k2 == 5 and nms_cuda.launches - k1 == 1
+    assert (tmp_path / "demo_1.png").exists()
+    k1 = nms_cuda.launches
+    serving_quickstart.main([])
+    printed = capsys.readouterr().out
+    assert "voc mAP@0.5:" in printed and "output boxes (2, 100, 4)" in printed
+    assert nms_cuda.launches > k1

@@ -13,7 +13,7 @@ from shape_based_object_detection_tpu.ops.nms_pallas import (
 )
 from shape_based_object_detection_torch.ops import nms as torch_nms
 from tests.test_nms_pallas import _candidates
-from tests.torch_kernel_cases import nms_edge_cases
+from tests.torch_kernel_cases import nms_edge_cases, nms_large_cases
 
 
 def _nms_inputs(rng, b, n, classes=4):
@@ -244,3 +244,92 @@ def test_greedy_nms_op_equals_both_routes(name):
     auto = run_nms(boxes, scores, classes, valid, cfg, backend="auto")
     plain = run_nms(boxes, scores, classes, valid, cfg, backend="plain")
     assert all(torch.equal(a, b) for a, b in zip(auto, plain))
+
+
+def sort_walk(boxes, scores, valid, t, m):
+    """Greedy NMS as the kernel's walk route (N > 4096) computes it: the
+    same sort, then words of 64 sorted candidates, each tested against the
+    picks kept so far, its own 64 x 64 diagonal tile resolved serially as
+    the sweep does. Returns (idx int32, scores float32, valid bool), each
+    (B, m)."""
+    b, n = scores.shape
+    idx_out = np.zeros((b, m), np.int32)
+    score_out = np.zeros((b, m), np.float32)
+    ok_out = np.zeros((b, m), bool)
+    for i in range(b):
+        s = scores[i].astype(np.float32)
+        live = np.flatnonzero(valid[i] & (s > np.float32(-5e9)))
+        folded = np.where(s[live] == 0, np.float32(0), s[live])
+        order = live[np.lexsort((live, -folded))]
+        sb = boxes[i, order].astype(np.float32)
+        kept, fill = [], None
+        for r0 in range(0, len(order), _WORD):
+            if len(kept) >= m or fill is not None:
+                break
+            word = sb[r0:r0 + _WORD]
+            removed = np.zeros(len(word), bool)
+            for p in kept:
+                removed |= _iou_ge(word, sb[p], t)
+            for k in range(len(word)):
+                if len(kept) >= m:
+                    break
+                if removed[k]:
+                    continue
+                row = np.zeros(len(word), bool)
+                row[k:] = _iou_ge(word[k:], word[k], t)
+                if not row[k]:
+                    fill = r0 + k
+                    break
+                kept.append(r0 + k)
+                removed |= row
+        picks = kept + [fill] * (m - len(kept)) if fill is not None else kept
+        for slot, pos in enumerate(picks):
+            idx_out[i, slot] = order[pos]
+            score_out[i, slot] = s[order[pos]]
+            ok_out[i, slot] = True
+    return idx_out, score_out, ok_out
+
+
+@pytest.mark.parametrize("name", list(nms_large_cases()))
+def test_sort_walk_above_4096_equals_plain(name):
+    """The walk route's formulation equals ``greedy_nms`` with tolerance 0
+    on the edge cases above 4096 candidates per image (fills after a first
+    pick that removes 63 words, ties at -0/+0, fewer live than M, sorted
+    input at 8192 and 20000, more than 4096 picks)."""
+    boxes, scores, valid, t, m = nms_large_cases()[name]
+    got = sort_walk(boxes, scores, valid, t, m)
+    plain = torch_nms.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                 torch.from_numpy(valid), t, m)
+    np.testing.assert_array_equal(got[0], plain.indices.numpy())
+    np.testing.assert_array_equal(got[2], plain.valid.numpy())
+    np.testing.assert_array_equal(_bits(got[1]), _bits(plain.scores))
+    if name == "zero_area_fill":
+        # the first pick removes its 3999 copies; the zero-area box then
+        # fills every remaining slot
+        assert len(set(got[0][0, 1:].tolist())) == 1 and got[2].all()
+
+
+@pytest.mark.parametrize("b,n", [(1, 4097), (2, 8192)])
+def test_greedy_nms_above_4096_equals_jax(b, n):
+    """Above the bitmask route's 4096 candidates per image: the port's
+    plain version equals the JAX package's scan (tolerance 0), and the
+    Pallas kernel in interpret mode at 4097."""
+    from tests.torch_kernel_cases import nms_inputs
+
+    boxes, scores, cls, valid = nms_inputs(np.random.default_rng(n), b, n)
+    shifted = np.asarray(torch_nms.class_offset_boxes(torch.from_numpy(boxes),
+                                                      torch.from_numpy(cls)))
+    got = torch_nms.greedy_nms(torch.from_numpy(shifted), torch.from_numpy(scores),
+                               torch.from_numpy(valid), 0.5, 100)
+    for i in range(b):
+        ref = jax_nms.greedy_nms(jnp.asarray(shifted[i]), jnp.asarray(scores[i]),
+                                 jnp.asarray(valid[i]), 0.5, 100)
+        np.testing.assert_array_equal(got.indices[i].numpy(), np.asarray(ref.indices))
+        np.testing.assert_array_equal(got.valid[i].numpy(), np.asarray(ref.valid))
+        np.testing.assert_array_equal(_bits(got.scores[i]), _bits(ref.scores))
+    if n == 4097:
+        p_idx, p_sc, p_ok = greedy_nms_pallas(jnp.asarray(shifted), jnp.asarray(scores),
+                                              jnp.asarray(valid), 0.5, 100, interpret=True)
+        np.testing.assert_array_equal(got.indices.numpy(), np.asarray(p_idx))
+        np.testing.assert_array_equal(got.valid.numpy(), np.asarray(p_ok))
+        np.testing.assert_array_equal(got.scores.numpy(), np.asarray(p_sc))

@@ -151,6 +151,26 @@ def test_tta_detect_equals_jax(tiny):
                    _lists(jax_detect(tiny["variables"], jnp.asarray(images))), [1.0, 1.0])
 
 
+def test_tta_detect_above_4096_candidates_equals_jax(tiny):
+    """hflip detect with pre_nms_top_k 2100: its merge holds 4200 candidates
+    per image, above the bitmask route of the card's kernel. The port
+    against JAX's detect_tta on the same weights, at the parity bars."""
+    jcfg, tcfg = (with_detect(tiny[k], tta_hflip=True, pre_nms_top_k=2100)
+                  for k in ("jmodel", "tmodel"))
+    jax_detect = jax_det.make_detect_fn(tiny["module"], jax_anchors.anchors_for_model(jcfg),
+                                        jcfg, use_pallas=False)
+    detect = det_lib.make_detect_fn(tiny["port"], tiny["anchors"], tcfg, device="cpu")
+    images = np.random.default_rng(15).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    normalized = image_lib.normalize_images(torch.from_numpy(images))
+    with torch.no_grad():
+        merged = det_lib.tta_hflip_candidates(
+            *tiny["port"](torch.cat([normalized, normalized.flip(2)]).permute(0, 3, 1, 2)),
+            tiny["anchors"], tcfg)
+    assert merged[1].shape == (2, 4200)
+    assert_matched(_lists(detect(images)),
+                   _lists(jax_detect(tiny["variables"], jnp.asarray(images))), [1.0, 1.0])
+
+
 def test_multiscale_batch_detector_equals_jax(tiny):
     """Two scales (the base and an on-device resize to 160) merged by one
     NMS, against the JAX package's MultiScaleBatchDetector."""

@@ -13,31 +13,8 @@ from shape_based_object_detection_torch.utils import vgg_surgery
 from shape_based_object_detection_torch.utils.convert import (
     state_dict_from_jax_variables,
 )
+from tests.torch_kernel_cases import torchvision_vgg16
 from tests.torch_parity import jax_variables, port_model
-
-
-def _torchvision_vgg16(rng, width: int = 512, fc: int = 4096):
-    """A torchvision-layout VGG-16 state dict: ``features.{i}`` convs at
-    torchvision's layer ids, ``classifier.0`` (fc6) and ``classifier.3``
-    (fc7), with channels ``width / 512`` of the real ones."""
-    w = lambda c: c * width // 512
-    chans = [(3, w(64)), (w(64), w(64)), (w(64), w(128)), (w(128), w(128)),
-             (w(128), w(256)), (w(256), w(256)), (w(256), w(256)), (w(256), w(512)),
-             (w(512), w(512)), (w(512), w(512)), (w(512), w(512)), (w(512), w(512)),
-             (w(512), w(512))]
-    ids = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
-    normal = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-    sd = {}
-    for i, (ci, co) in zip(ids, chans):
-        sd[f"features.{i}.weight"] = normal(co, ci, 3, 3)
-        sd[f"features.{i}.bias"] = normal(co)
-    sd["classifier.0.weight"] = normal(fc, w(512) * 49)
-    sd["classifier.0.bias"] = normal(fc)
-    sd["classifier.3.weight"] = normal(fc, fc)
-    sd["classifier.3.bias"] = normal(fc)
-    sd["classifier.6.weight"] = normal(1000, fc)  # the classifier, unused
-    sd["classifier.6.bias"] = normal(1000)
-    return sd
 
 
 @pytest.mark.parametrize("steps", [[2, None], [None, 3], [4, 3], [1, 1]])
@@ -69,7 +46,7 @@ def test_load_equals_reference():
     keeps its value."""
     _, variables = jax_variables(jax_config.tiny_test_model("ssd"), seed=3)
     port, _ = port_model(torch_config.tiny_test_model("ssd"), variables)
-    sd = _torchvision_vgg16(np.random.default_rng(4), width=64, fc=512)
+    sd = torchvision_vgg16(np.random.default_rng(4), width=64, fc=512)
     before = {k: v.clone() for k, v in port.state_dict().items()}
     got = vgg_surgery.load_pretrained_vgg(sd, port.state_dict())
     want = state_dict_from_jax_variables(ref.load_pretrained_vgg_into_flax(sd, variables))
@@ -89,12 +66,12 @@ def test_features_only_checkpoint_raises():
     their random initialisation; a checkpoint of other widths fails too."""
     _, variables = jax_variables(jax_config.tiny_test_model("ssd"))
     port, _ = port_model(torch_config.tiny_test_model("ssd"), variables)
-    sd = _torchvision_vgg16(np.random.default_rng(5), width=64, fc=512)
+    sd = torchvision_vgg16(np.random.default_rng(5), width=64, fc=512)
     features = {k: v for k, v in sd.items() if k.startswith("features.")}
     with pytest.raises(ValueError, match="classifier"):
         vgg_surgery.load_pretrained_vgg(features, port.state_dict())
     with pytest.raises(ValueError, match="classifier"):
         ref.load_pretrained_vgg_into_flax(features, variables)
-    wide = _torchvision_vgg16(np.random.default_rng(6), width=128, fc=512)
+    wide = torchvision_vgg16(np.random.default_rng(6), width=128, fc=512)
     with pytest.raises(ValueError, match="shape"):
         vgg_surgery.load_pretrained_vgg(wide, port.state_dict())

@@ -1,6 +1,8 @@
 """Inputs and checks for the port's CUDA kernels, shared by the card tests
 (``tests/test_torch_cuda.py``), the CPU tests of the kernels' formulations
-(``tests/test_torch_nms.py``) and ``chip_smoke.py``.
+(``tests/test_torch_nms.py``) and ``chip_smoke.py``; and the synthetic
+torchvision VGG-16 checkpoint that the checks of ``tools/convert_checkpoint``
+convert.
 
 The inputs are numpy arrays made from a seed; the checks hold one kernel
 launch against its plain PyTorch version on the same card tensors. Nothing
@@ -90,6 +92,60 @@ def nms_edge_cases():
     }
 
 
+def nms_large_cases():
+    """name -> (boxes, scores, valid, iou_threshold, max_detections), numpy:
+    the traps of ``nms_edge_cases`` above the bitmask route's 4096
+    candidates per image, where the walk route runs (its sort's keys in
+    shared memory up to 16384 and in global scratch above, more kept picks
+    than the bitmask route's N)."""
+    rng = np.random.default_rng(13)
+    # 4000 copies of one box ahead of a zero-area box, shuffled: the first
+    # pick removes 63 words, then the zero-area box fills the other slots
+    boxes, scores, _, valid = nms_inputs(rng, 1, 4200)
+    boxes[0, :4000] = [0.2, 0.2, 0.6, 0.6]
+    scores[0, :4000] = np.linspace(0.99, 0.5, 4000, dtype=np.float32)
+    boxes[0, 4000] = [0.7, 0.7, 0.7, 0.9]
+    scores[0, 4000] = 0.45
+    scores[0, 4001:] = rng.uniform(0, 0.4, 199)
+    valid[:] = True
+    perm = rng.permutation(4200)
+    fill = (boxes[:, perm], scores[:, perm], valid[:, perm])
+    # -0/+0 and 0.25 ties ahead of negative scores, no zero-area box
+    boxes, scores, _, valid = nms_inputs(rng, 2, 5000)
+    ties = -scores
+    ties[:, :40] = np.where(np.arange(40) % 3 == 0, -0.0, 0.0)
+    ties[:, 42:52] = 0.25
+    boxes[:, ::41, 2] += 0.05
+    # 20 live of 4097, fewer than M: the slots after them stay empty
+    few = nms_inputs(rng, 1, 4097)
+    few[0][:, ::41, 2] += 0.05
+    few[3][:, 20:] = False
+    above = nms_inputs(rng, 2, 4097)
+    # already in order, as select_candidates gives them: the sort is skipped,
+    # its check reading keys in shared memory (8192) and in global scratch
+    # (20000)
+    in_order = {}
+    for n in (8192, 20000):
+        b_, s_, c_, v_ = nms_inputs(rng, 1, n)
+        rank = np.argsort(-s_, axis=1, kind="stable")
+        shifted = b_ + 2.0 * c_[..., None].astype(np.float32)
+        in_order[n] = (np.take_along_axis(shifted, rank[..., None], 1),
+                       np.take_along_axis(s_, rank, 1), v_)
+    # more than 4096 picks, each tested against every later word
+    b_, s_, c_, v_ = nms_inputs(rng, 1, 6000)
+    many = (b_ + 2.0 * c_[..., None].astype(np.float32), s_, v_)
+    return {
+        "zero_area_fill": (*fill, 0.5, 10),
+        "threshold_above_1": (above[0], above[1], above[3], 1.5, 7),
+        "signed_zero_ties": (boxes, ties, valid, 0.5, 60),
+        "all_invalid": (above[0], above[1], np.zeros_like(above[3]), 0.5, 10),
+        "n_below_m": (few[0], few[1], few[3], 0.5, 64),
+        "in_order_8192": (*in_order[8192], 0.5, 100),
+        "in_order_20000": (*in_order[20000], 0.5, 100),
+        "picks_above_4096": (*many, 0.5, 4500),
+    }
+
+
 def match_edge_cases():
     """name -> (gt, labels, valid, shape_weight), numpy GT batches for the
     matching kernel against the R50-FPN-512 anchors: G = 1; G = 100 with 0,
@@ -112,6 +168,31 @@ def match_edge_cases():
         "shape_weight_1.5": (*shaped, 1.5),
         "ties": (*match_inputs(rng, 16, 64, "ties"), 0.0),
     }
+
+
+def torchvision_vgg16(rng, width: int = 512, fc: int = 4096):
+    """A torchvision-layout VGG-16 state dict from ``rng``: ``features.{i}``
+    convs at torchvision's layer ids, ``classifier.0`` (fc6) and
+    ``classifier.3`` (fc7), with channels ``width / 512`` of the real ones
+    (no pretrained file is in the repository)."""
+    w = lambda c: c * width // 512
+    chans = [(3, w(64)), (w(64), w(64)), (w(64), w(128)), (w(128), w(128)),
+             (w(128), w(256)), (w(256), w(256)), (w(256), w(256)), (w(256), w(512)),
+             (w(512), w(512)), (w(512), w(512)), (w(512), w(512)), (w(512), w(512)),
+             (w(512), w(512))]
+    ids = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    normal = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    sd = {}
+    for i, (ci, co) in zip(ids, chans):
+        sd[f"features.{i}.weight"] = normal(co, ci, 3, 3)
+        sd[f"features.{i}.bias"] = normal(co)
+    sd["classifier.0.weight"] = normal(fc, w(512) * 49)
+    sd["classifier.0.bias"] = normal(fc)
+    sd["classifier.3.weight"] = normal(fc, fc)
+    sd["classifier.3.bias"] = normal(fc)
+    sd["classifier.6.weight"] = normal(1000, fc)  # the classifier, unused
+    sd["classifier.6.bias"] = normal(1000)
+    return sd
 
 
 def nms_bit_equal(boxes, scores, valid, t, m):
