@@ -15,8 +15,10 @@ evaluation is sharded: each rank detects its rows of every batch of
 detections and annotations in rank order, and every rank scores the whole
 split in the single process's order; rank 0 prints the result and writes
 ``--dump-results``. With ``--set mesh.model_parallelism=M`` the ranks of a
-data index split each image's rows (float tier only: ``--quantize``,
-``--artifact`` and TTA raise there).
+data index split each image's rows, at any image size, in every tier and
+with either TTA; an ``--artifact`` is a program for one device (as the
+reference's), so there each rank runs it whole on its data index's
+images.
 """
 
 from __future__ import annotations
@@ -104,13 +106,6 @@ def main(argv=None):
     if args.dataset:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 dataset=args.dataset))
-    if cfg.mesh.model_parallelism > 1:
-        from shape_based_object_detection_torch.parallel.spatial import not_under_model_axis
-
-        for flag, name in ((args.quantize, "--quantize"), (args.artifact, "--artifact"),
-                           (args.tta_hflip, "--tta-hflip"), (args.tta_scales, "--tta-scales")):
-            if flag:
-                raise not_under_model_axis(f"eval_cli {name}")
     # torchrun's environment forms the group; alone, no group forms
     mesh = initialize_multihost(device=args.device, cfg=cfg.mesh)
     try:
@@ -129,9 +124,7 @@ def _evaluate(args, cfg, mesh):
         build_dataset, sharded_batches, upload,
     )
     from shape_based_object_detection_torch.data.pipeline import Loader
-    from shape_based_object_detection_torch.detection import (
-        MultiScaleBatchDetector, make_detect_fn,
-    )
+    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
     from shape_based_object_detection_torch.eval import Evaluator
     from shape_based_object_detection_torch.models.factory import build_model
     from shape_based_object_detection_torch.ops.boxes import boxes_to_original
@@ -154,10 +147,10 @@ def _evaluate(args, cfg, mesh):
             if header.get(key, got) != got:
                 raise SystemExit(f"artifact/config mismatch: header {key}="
                                  f"{header.get(key)!r} but --config resolves to {got!r}")
-        # the artifact has one batch shape, each rank's; batches_padded pads
-        # the tail to the ranks' batches together
+        # the artifact has one batch shape, each data index's; batches_padded
+        # pads the tail to the data indexes' batches together
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-            cfg.data, batch_size=header["batch_size"] * mesh.world))
+            cfg.data, batch_size=header["batch_size"] * mesh.data_size))
     else:
         module, anchors = build_model(cfg.model, dev)
         if args.checkpoint_dir:
@@ -173,14 +166,14 @@ def _evaluate(args, cfg, mesh):
             try:
                 detect = MultiScaleBatchDetector(
                     cfg.model, module, parse_scales(args.tta_scales), cfg.data, dev,
-                    quantize=args.quantize, activation_scales=args.act_scales or None)
+                    quantize=args.quantize, activation_scales=args.act_scales or None,
+                    mesh=mesh)
             except ValueError as e:  # e.g. SSD at a scale that changes its plan
                 raise SystemExit(str(e))
-        elif mesh.model_parallelism > 1:  # each rank its rows of the images
-            detect = make_detect_fn(module, anchors, cfg.model, cfg.data, dev, mesh)
-        else:
+        else:  # under a model axis each rank computes its rows of the images
             detect, _ = make_serving_detect(module, anchors, cfg.model, cfg.data,
-                                            args.quantize, dev, args.act_scales or None)
+                                            args.quantize, dev, args.act_scales or None,
+                                            mesh)
 
     # COCO: crowd regions ride along as ignore regions, and the area strata
     # (32^2/96^2 px) are in ORIGINAL-image pixels, from each image's size;

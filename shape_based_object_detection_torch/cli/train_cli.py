@@ -20,7 +20,9 @@ global batch. Rank 0 logs and writes checkpoints.
 (the reference's "model" axis, config #5's 1024 px lever): the N ranks form
 N / M data indexes of M ranks each; the ranks of one data index load and
 augment the same ``batch_size * M / N`` images, and each computes its rows
-of every feature map, with halos from its neighbours. The step equals a
+of every feature map (``ceil(H / M)`` rows, the last ones padding where
+they do not split evenly), with the rows its windows read fetched from the
+ranks that own them. Any RetinaNet or SSD preset splits. The step equals a
 single process's on the global batch.
 """
 

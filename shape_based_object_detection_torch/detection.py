@@ -15,7 +15,9 @@ shared weights, merged by one NMS), as the reference's float tier.
 Under a mesh with a model axis (``make_detect_fn(..., mesh=)``) each rank
 of a model group runs the forward on its rows of the images and gets the
 whole images' head outputs; candidate selection and NMS then run on them on
-every rank of the group, alike.
+every rank of the group, alike. So do hflip TTA (the flip is of columns,
+which every rank holds whole), multi-scale TTA (each scale's images are
+resized whole, then split) and the int8 tiers.
 """
 
 from __future__ import annotations
@@ -201,12 +203,11 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
     With a ``parallel.Mesh`` whose model axis has more than one rank, every
     rank of a model group passes the same images (its data index's); each
     runs the forward on its rows (``set_row_shard`` on ``module``), and
-    each returns the images' detections. Gathering the data indexes'
-    detections is the caller's (``parallel.mesh.all_gather_rows``). TTA
-    and the int8 tiers raise there."""
-    from shape_based_object_detection_torch.models.retinanet import set_row_shard
+    each returns the images' detections, hflip TTA and an int8 ``module``
+    included. Gathering the data indexes' detections is the caller's
+    (``parallel.mesh.all_gather_rows``)."""
     from shape_based_object_detection_torch.parallel.mesh import spatial_image_sharding
-    from shape_based_object_detection_torch.parallel.spatial import not_under_model_axis
+    from shape_based_object_detection_torch.parallel.spatial import set_row_shard
 
     dev = resolve_device(device if mesh is None or device is not None else mesh.device)
     if module_device(module) != dev or anchors_cxcywh.device != dev:
@@ -215,8 +216,6 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
             f"{module_device(module)} and {anchors_cxcywh.device}")
     shard = None
     if mesh is not None and mesh.model_parallelism > 1:
-        if cfg.detect.tta_hflip:
-            raise not_under_model_axis("hflip TTA")
         shard = spatial_image_sharding(mesh, model=cfg)
         set_row_shard(module, shard)
     program = DetectProgram(module, anchors_cxcywh, cfg, data_cfg, shard)
@@ -230,7 +229,7 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
 
 def _build_scale_programs(module, model_cfg: ModelConfig, scales,
                           data_cfg: DataConfig | None, device, quantize="",
-                          activation_scales=None):
+                          activation_scales=None, mesh=None):
     """One detect per scale, all on ``module``'s weights, and the cross-scale
     merge. Each scale's module is built on the meta device first (shapes
     only, no arithmetic): a scale whose ``state_dict`` shapes differ from
@@ -241,14 +240,14 @@ def _build_scale_programs(module, model_cfg: ModelConfig, scales,
     tier from one quantized copy of ``module``: its int8 tensors are shared
     as the float ones are. ``activation_scales`` (dict or JSON path) makes
     "full" static; the scales are per tensor, with no spatial extent, so
-    scales calibrated at the base size apply at every scale.
+    scales calibrated at the base size apply at every scale. Under a
+    ``mesh`` with a model axis every scale's detect splits its images' rows
+    (``make_detect_fn``), whether they split evenly or not.
     Returns ``([(detect, scale), ...], merge)``."""
     from shape_based_object_detection_torch import quantize as quantize_lib
     from shape_based_object_detection_torch.models.factory import build_module
     from shape_based_object_detection_torch.ops import anchors as anchor_lib
-    from shape_based_object_detection_torch.parallel.spatial import refuse_row_shard
 
-    refuse_row_shard(module, "multi-scale TTA")
     dev = resolve_device(device)
     quantize = quantize_lib.normalize_quantize_mode(quantize)
     if activation_scales is not None and quantize != "full":
@@ -287,7 +286,7 @@ def _build_scale_programs(module, model_cfg: ModelConfig, scales,
             smodule.load_state_dict(weights, strict=True, assign=True)
             smodule.eval()
         anchors = anchor_lib.anchors_for_model(scfg).to(dev)
-        per_scale.append((make_detect_fn(smodule, anchors, scfg, data_cfg, dev),
+        per_scale.append((make_detect_fn(smodule, anchors, scfg, data_cfg, dev, mesh),
                           scfg.image_size))
 
     def merge(boxes, scores, classes, valid) -> nms_lib.Detections:
@@ -320,19 +319,21 @@ class MultiScaleBatchDetector:
     original -> scale. Composes with hflip TTA through
     ``model_cfg.detect.tta_hflip``, and with the int8 tiers through
     ``quantize`` / ``activation_scales`` (one quantized copy serves every
-    scale).
+    scale). Under a ``mesh`` with a model axis every rank of a model group
+    passes its data index's images, resized whole on every rank, and each
+    scale's forward splits their rows; the merge runs alike on every rank.
     """
 
     def __init__(self, model_cfg: ModelConfig, module, scales,
                  data_cfg: DataConfig | None = None, device=None,
-                 quantize: bool | str = "", activation_scales=None):
+                 quantize: bool | str = "", activation_scales=None, mesh=None):
         if not scales:
             raise ValueError("scales must name at least one image size")
         self.scales = tuple(int(s) for s in scales)
         self.device = resolve_device(device)
         per_scale, self._merge = _build_scale_programs(
             module, model_cfg, self.scales, data_cfg, self.device, quantize,
-            activation_scales)
+            activation_scales, mesh)
         base = model_cfg.image_size
         self._fns = [fn if s == base else self._with_resize(fn, s)
                      for fn, s in per_scale]

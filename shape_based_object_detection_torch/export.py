@@ -48,15 +48,18 @@ def export_detect(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
     there), with its weights. ``quantize=True`` bakes the weight-only int8
     tier in, ``int8_activations=True`` the full tier (dynamic, or static
     with ``activation_scales``: a calibration dict or the path of its JSON).
-    Returns the artifact's bytes. A module split by rows over a model axis
-    raises NotImplementedError."""
+    Returns the artifact's bytes. The artifact is a program for one device,
+    as the reference's: a module split by rows over a model axis exports
+    the unsplit program of the same weights (a copy with its row shard
+    cleared), equal to the unsplit module's artifact."""
     from shape_based_object_detection_torch.detection import DetectProgram, module_device
-    from shape_based_object_detection_torch.parallel.spatial import refuse_row_shard
+    from shape_based_object_detection_torch.parallel import spatial
     from shape_based_object_detection_torch.quantize import (
         load_activation_scales, quantize_module,
     )
 
-    refuse_row_shard(module, "the exported artifact")
+    if spatial.row_shard_of(module) is not None:
+        module = spatial.copy_module(module, None)
     if int8_activations and not quantize:
         raise ValueError("int8_activations=True requires quantize=True (it is a tier on "
                          "top of int8 weights)")

@@ -8,11 +8,12 @@ Attribute names follow the flax module paths (``layer2_0.conv2``,
 ``downsample_bn``), so converted JAX weights load with ``strict=True``.
 
 Under a row shard (``row_shard``, set on the whole detector by
-``models/retinanet.set_row_shard``) the input is this rank's rows of the
-images: the stem's convolution and max-pool and each bottleneck's 3x3 take
-their halos from the neighbouring ranks (``parallel/spatial.py``); the 1x1
-convolutions, the projections and frozen BatchNorm are row-local, and
-trainable BatchNorm sums its statistics over its group, the world.
+``parallel/spatial.set_row_shard``) the input is this rank's rows of the
+images: every convolution (``RowConv2d``) and the stem's max-pool fetch
+the rows their windows read from the ranks that own them
+(``parallel/spatial.py``; a stride-1 1x1 and frozen BatchNorm are
+row-local), and trainable BatchNorm sums its statistics over the real
+rows of its group, the world.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from shape_based_object_detection_torch.parallel.spatial import row_conv2d, row_max_pool2d
+from shape_based_object_detection_torch.parallel.spatial import (
+    RowConv2d, map_height, row_max_pool2d,
+)
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
@@ -69,7 +72,11 @@ class BatchNorm(nn.Module):
     the reference's one program: the per-channel sums of x and x^2 and the
     count are summed over the ranks by an all-reduce that carries the
     gradient, so every rank normalises, and keeps in ``pending``, the same
-    statistics. The means are the sums over the count in every case."""
+    statistics. The means are the sums over the count in every case. Under
+    a row shard (``row_shard``) a rank's sums and count take its real rows
+    only, so the padding rows of an uneven split do not count."""
+
+    row_shard = None
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
                  train_bn: bool = False):
@@ -96,8 +103,11 @@ class BatchNorm(nn.Module):
             return y.to(x.dtype)
         xf = x.float()
         c = xf.shape[1]
-        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
-        sums = torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count])
+        real = xf
+        if self.row_shard is not None:
+            real = xf[:, :, :self.row_shard.real(map_height(x, self.row_shard))]
+        count = torch.full((1,), real.numel() // c, dtype=torch.float32, device=xf.device)
+        sums = torch.cat([real.sum((0, 2, 3)), real.square().sum((0, 2, 3)), count])
         if self.group is not None:
             sums = dist_nn.all_reduce(sums, group=self.group)
         mean = sums[:c] / sums[2 * c]
@@ -136,16 +146,14 @@ def apply_batch_stats(module: nn.Module) -> None:
             m.pending = None
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
+def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> RowConv2d:
     """k x k convolution padded (k - 1) // 2 on each side: the reference's
     explicit ((1, 1), (1, 1)) for 3x3, ((3, 3), (3, 3)) for 7x7, and SAME
     (no padding) for 1x1."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=bias)
+    return RowConv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=bias)
 
 
 class Bottleneck(nn.Module):
-    row_shard = None
-
     def __init__(self, cin: int, channels: int, stride: int = 1, train_bn: bool = False):
         super().__init__()
         out_ch = channels * 4
@@ -163,7 +171,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(row_conv2d(self.conv2, y, self.row_shard), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
         y = self.bn3(self.conv3(y), train)
         residual = (x if self.downsample is None
                     else self.downsample_bn(self.downsample(x), train))
@@ -198,7 +206,7 @@ class ResNet(nn.Module):
         self.out_channels = tuple(w * 4 for w in widths[1:])  # C3, C4, C5
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(row_conv2d(self.conv1, x, self.row_shard), train))
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = row_max_pool2d(x, 3, 2, 1, self.row_shard)
         taps = []
         for names in self.stages:

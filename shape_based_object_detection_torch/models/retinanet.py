@@ -18,12 +18,14 @@ TF32 switch for float32 convolutions: "highest" is true float32 (TF32 off),
 "default" lets cuDNN use TF32, the card's counterpart of the reference's
 reduced-precision default.
 
-Under a row shard (``set_row_shard``: the reference's images split by rows
-over its "model" mesh axis) the forward takes this rank's rows of the
-images (``RowShard.split``), every 3x3 and 7x7 convolution and the stem's
-max-pool exchange halos with the neighbouring ranks, and each level's head
-outputs are gathered over the model group: every rank of the group returns
-the whole images' ``cls_logits`` and ``box_offsets``, as unsplit.
+Under a row shard (``parallel/spatial.set_row_shard``: the reference's
+images split by rows over its "model" mesh axis) the forward takes this
+rank's rows of the images (``RowShard.split``), every convolution, the
+stem's max-pool and the FPN's upsample fetch the rows they read from the
+ranks that own them, and each level's head outputs are gathered over the
+model group with the padding rows of an uneven split cut: every rank of
+the group returns the whole images' ``cls_logits`` and ``box_offsets``,
+as unsplit.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +46,7 @@ from shape_based_object_detection_torch.ops.anchors import (
     num_anchors_per_cell, retinanet_feature_sizes,
 )
 from shape_based_object_detection_torch.parallel.spatial import (
-    ROADMAP_UNEVEN, RowShard, check_rows, gather_rows, not_under_model_axis, row_conv2d,
+    RowConv2d, check_split_input, gather_rows,
 )
 
 PRIOR_PROB = 0.01
@@ -85,9 +87,8 @@ def conv_precision(precision: str):
 
 
 class RetinaNetHead(nn.Module):
-    """One shared subnet applied to every pyramid level."""
-
-    row_shard = None
+    """One shared subnet applied to every pyramid level; returns the level's
+    outputs as an NHWC map (B, H, W, A * num_outputs)."""
 
     def __init__(self, num_outputs: int, num_anchors: int, depth: int = 4,
                  channels: int = 256, final_bias: float = 0.0):
@@ -96,16 +97,14 @@ class RetinaNetHead(nn.Module):
         self.depth = depth
         self.final_bias = final_bias
         for i in range(depth):
-            self.add_module(f"conv_{i}", nn.Conv2d(channels, channels, 3, padding=1))
-        self.predict = nn.Conv2d(channels, num_anchors * num_outputs, 3, padding=1)
+            self.add_module(f"conv_{i}", RowConv2d(channels, channels, 3, padding=1))
+        self.predict = RowConv2d(channels, num_anchors * num_outputs, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
-            x = F.relu(row_conv2d(getattr(self, f"conv_{i}"), x, self.row_shard))
-        x = row_conv2d(self.predict, x, self.row_shard)
-        b = x.shape[0]
+            x = F.relu(getattr(self, f"conv_{i}")(x))
         # NHWC before flattening, so anchors line up with the reference's
-        return x.permute(0, 2, 3, 1).reshape(b, -1, self.num_outputs)
+        return self.predict(x).permute(0, 2, 3, 1)
 
 
 class RetinaNet(nn.Module):
@@ -129,38 +128,21 @@ class RetinaNet(nn.Module):
         BatchNorm where ``cfg.train_bn`` allows it."""
         dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
         remat, shard = self.cfg.remat, self.row_shard
-        if shard is not None and images.shape[2] * shard.size != self.cfg.image_size:
-            raise ValueError(f"under a row shard of {shard.size} ranks the forward takes "
-                             f"{self.cfg.image_size // shard.size} rows of each image "
-                             f"(RowShard.split), not {images.shape[2]}")
+        check_split_input(images, shard, self.cfg.image_size)
         with conv_precision(self.cfg.precision):
             c3, c4, c5 = self.backbone(images.to(dtype), train)
             pyramid = run_segment(self.fpn, c3, c4, c5, remat=remat)
             cls_out = [run_segment(self.cls_head, p, remat=remat) for p in pyramid]
             box_out = [run_segment(self.box_head, p, remat=remat) for p in pyramid]
-            if shard is not None:  # each level's rows from every rank, in order
+            if shard is not None:  # each level's real rows from every rank, in order
                 out = gather_rows(cls_out + box_out, shard)
                 cls_out, box_out = out[:len(pyramid)], out[len(pyramid):]
-            cls_logits = torch.cat(cls_out, 1)
-            box_offsets = torch.cat(box_out, 1)
+            b = images.shape[0]
+            cls_logits = torch.cat([t.reshape(b, -1, self.cfg.num_classes) for t in cls_out], 1)
+            box_offsets = torch.cat([t.reshape(b, -1, 4) for t in box_out], 1)
         return cls_logits.float(), box_offsets.float()
 
     def feature_sizes(self) -> Tuple[int, ...]:
         """The side of each pyramid level's map, P3 to P7."""
         return retinanet_feature_sizes(self.cfg.image_size, self.cfg.anchors.strides)
 
-
-def set_row_shard(module: nn.Module, shard: Optional[RowShard]) -> None:
-    """Make ``module`` compute on one rank's rows of its images, with its
-    halos from the ranks of ``shard``'s model group (None: the whole
-    images, as unsplit). Only RetinaNet splits: another detector raises
-    NotImplementedError (so does a forward through an int8 convolution);
-    an image size whose rows do not split evenly down to P7 raises
-    ValueError."""
-    if shard is not None:
-        if not isinstance(module, RetinaNet):
-            raise not_under_model_axis(type(module).__name__, ROADMAP_UNEVEN)
-        check_rows(module.cfg.image_size, max(module.cfg.anchors.strides), shard.size)
-    for m in module.modules():
-        if hasattr(m, "row_shard"):
-            m.row_shard = shard

@@ -10,6 +10,13 @@ per-cell prior ([ratios..., the extra sqrt prior]).
 ``cfg.dtype`` and ``cfg.precision`` act as in ``models/retinanet.py``;
 ``cfg.remat`` rematerialises the trunk's four segments and the extras as
 one more, as the reference's ``nn.remat``.
+
+Under a row shard (``parallel/spatial.set_row_shard``) the forward takes
+this rank's rows of the images, as RetinaNet's does: the trunk, the
+extras (SSD300's unpadded 3x3 tail, SSD-512's 4x4 pad-1 conv12_2) and the
+heads fetch the rows they read, none of SSD's maps (38, 19, 10, 5, 3, 1 at
+300 px) needing to split evenly, and each map's head outputs are gathered
+over the model group with the padding rows cut.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from shape_based_object_detection_torch.models.vgg import L2Norm, VGG16Trunk
 from shape_based_object_detection_torch.ops.anchors import (
     num_anchors_per_cell, ssd_extra_plan, ssd_feature_sizes,
 )
+from shape_based_object_detection_torch.parallel.spatial import (
+    RowConv2d, check_split_input, gather_rows,
+)
 
 
 class SSDExtras(nn.Module):
@@ -38,8 +48,8 @@ class SSDExtras(nn.Module):
         self.names = []
         for name, c1, c2, stride, pad, kernel in ssd_extra_plan(image_size):
             c1, c2 = round_channels(c1, width_mult), round_channels(c2, width_mult)
-            self.add_module(f"{name}_1", nn.Conv2d(cin, c1, 1))
-            self.add_module(f"{name}_2", nn.Conv2d(c1, c2, kernel, stride, pad))
+            self.add_module(f"{name}_1", RowConv2d(cin, c1, 1))
+            self.add_module(f"{name}_2", RowConv2d(c1, c2, kernel, stride, pad))
             self.names.append(name)
             cin = c2
         self.out_channels = [getattr(self, f"{n}_2").out_channels for n in self.names]
@@ -54,6 +64,8 @@ class SSDExtras(nn.Module):
 
 
 class SSD(nn.Module):
+    row_shard = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -68,28 +80,33 @@ class SSD(nn.Module):
         self.num_outputs = cfg.num_classes + 1  # softmax, background at 0
         for i, ch in enumerate(channels):
             a = num_anchors_per_cell(cfg.anchors, i, "ssd")
-            self.add_module(f"loc_{i}", nn.Conv2d(ch, a * 4, 3, padding=1))
-            self.add_module(f"cls_{i}", nn.Conv2d(ch, a * self.num_outputs, 3, padding=1))
+            self.add_module(f"loc_{i}", RowConv2d(ch, a * 4, 3, padding=1))
+            self.add_module(f"cls_{i}", RowConv2d(ch, a * self.num_outputs, 3, padding=1))
 
     def forward(self, images: torch.Tensor,
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """images: (B, 3, H, W) normalized float. ``train`` is taken for the
-        signature RetinaNet has; SSD has no BatchNorm, so it changes
-        nothing."""
+        """images: (B, 3, H, W) normalized float (under a row shard, this
+        rank's rows of them). ``train`` is taken for the signature RetinaNet
+        has; SSD has no BatchNorm, so it changes nothing."""
         dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
+        shard = self.row_shard
+        check_split_input(images, shard, self.cfg.image_size)
         with conv_precision(self.cfg.precision):
             conv4_3, conv7 = self.vgg(images.to(dtype))
             extras = run_segment(self.extras, conv7, remat=self.cfg.remat)
             feats = [self.l2norm(conv4_3), conv7] + list(extras)
+            # NHWC before flattening, so priors line up with the reference's
+            cls_out = [getattr(self, f"cls_{i}")(f).permute(0, 2, 3, 1)
+                       for i, f in enumerate(feats)]
+            box_out = [getattr(self, f"loc_{i}")(f).permute(0, 2, 3, 1)
+                       for i, f in enumerate(feats)]
+            if shard is not None:  # each map's real rows from every rank, in order
+                out = gather_rows(cls_out + box_out, shard)
+                cls_out, box_out = out[:len(feats)], out[len(feats):]
             b = images.shape[0]
-            cls_out, box_out = [], []
-            for i, f in enumerate(feats):
-                # NHWC before flattening, so priors line up with the reference's
-                loc = getattr(self, f"loc_{i}")(f).permute(0, 2, 3, 1)
-                cls = getattr(self, f"cls_{i}")(f).permute(0, 2, 3, 1)
-                box_out.append(loc.reshape(b, -1, 4))
-                cls_out.append(cls.reshape(b, -1, self.num_outputs))
-        return torch.cat(cls_out, 1).float(), torch.cat(box_out, 1).float()
+            cls_logits = torch.cat([t.reshape(b, -1, self.num_outputs) for t in cls_out], 1)
+            box_offsets = torch.cat([t.reshape(b, -1, 4) for t in box_out], 1)
+        return cls_logits.float(), box_offsets.float()
 
     def feature_sizes(self) -> Tuple[int, ...]:
         """The side of each feature map the heads read."""

@@ -6,6 +6,12 @@ dilated by 6 and a 1x1 conv7 in place of fc6/fc7. conv4_3 goes through
 ``L2Norm``, a per-channel scale initialised to 20. Attribute names follow
 the flax module paths (``vgg.conv1_1``, ..., ``vgg.conv7``, ``l2norm``), so
 converted JAX weights load with ``strict=True``.
+
+Under a row shard (``row_shard``) every convolution (``RowConv2d``) and
+pool fetches the rows its window reads from the ranks that own them:
+conv6's 13-row window from several ranks where a rank holds fewer rows,
+pool3's ceil mode with -inf past the last row, as unsplit. ``L2Norm`` is
+per pixel, so row-local.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shape_based_object_detection_torch.models.resnet import round_channels, run_segment
+from shape_based_object_detection_torch.parallel.spatial import RowConv2d, row_max_pool2d
 
 
 class L2Norm(nn.Module):
@@ -34,8 +41,8 @@ class L2Norm(nn.Module):
         return x / norm.to(x.dtype) * self.weight.to(x.dtype).view(1, -1, 1, 1)
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+def _conv3(cin: int, cout: int) -> RowConv2d:
+    return RowConv2d(cin, cout, 3, padding=1)
 
 
 class VGG16Trunk(nn.Module):
@@ -43,6 +50,8 @@ class VGG16Trunk(nn.Module):
     1-2, stage 3, stage 4 and stage 5 with conv6/conv7 four segments of
     rematerialisation, as the reference's; the segments are methods over
     named children, so the state dict does not change."""
+
+    row_shard = None
 
     def __init__(self, width_mult: float = 1.0, remat: bool = False):
         super().__init__()
@@ -59,30 +68,33 @@ class VGG16Trunk(nn.Module):
         for name, cin, cout in plan:
             self.add_module(name, _conv3(cin, cout))
         # the fc6 replacement: 3x3, dilation 6, padding 6; fc7's: 1x1
-        self.conv6 = nn.Conv2d(w(512), w(1024), 3, padding=6, dilation=6)
-        self.conv7 = nn.Conv2d(w(1024), w(1024), 1)
+        self.conv6 = RowConv2d(w(512), w(1024), 3, padding=6, dilation=6)
+        self.conv7 = RowConv2d(w(1024), w(1024), 1)
 
     def _convs(self, x: torch.Tensor, *names: str) -> torch.Tensor:
         for name in names:
             x = F.relu(getattr(self, name)(x))
         return x
 
+    def _pool(self, x, kernel, stride, padding=0, ceil_mode=False):
+        return row_max_pool2d(x, kernel, stride, padding, self.row_shard, ceil_mode)
+
     def _seg12(self, x):
-        x = F.max_pool2d(self._convs(x, "conv1_1", "conv1_2"), 2, 2)
-        return F.max_pool2d(self._convs(x, "conv2_1", "conv2_2"), 2, 2)
+        x = self._pool(self._convs(x, "conv1_1", "conv1_2"), 2, 2)
+        return self._pool(self._convs(x, "conv2_1", "conv2_2"), 2, 2)
 
     def _seg3(self, x):
         x = self._convs(x, "conv3_1", "conv3_2", "conv3_3")
         # pool3 is ceil-mode (75 -> 38 at 300 px), each dimension on its own:
         # the reference pads an odd dimension with -inf at its end
-        return F.max_pool2d(x, 2, 2, ceil_mode=True)
+        return self._pool(x, 2, 2, ceil_mode=True)
 
     def _seg4(self, x):
         return self._convs(x, "conv4_1", "conv4_2", "conv4_3")
 
     def _seg5(self, x):
-        x = self._convs(F.max_pool2d(x, 2, 2), "conv5_1", "conv5_2", "conv5_3")
-        x = F.max_pool2d(x, 3, stride=1, padding=1)  # pool5 keeps the size
+        x = self._convs(self._pool(x, 2, 2), "conv5_1", "conv5_2", "conv5_3")
+        x = self._pool(x, 3, 1, 1)  # pool5 keeps the size
         return self._convs(x, "conv6", "conv7")
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -12,9 +12,12 @@ from shape_based_object_detection_torch.parallel.mesh import (
     spatial_image_sharding,
 )
 from shape_based_object_detection_torch.parallel.spatial import (
+    RowConv2d,
     RowShard,
     gather_rows,
     halo_exchange,
     row_conv2d,
     row_max_pool2d,
+    row_upsample_nearest,
+    set_row_shard,
 )

@@ -17,10 +17,11 @@ number of positives and BatchNorm's batch statistics.
 With ``MeshConfig.model_parallelism = mp > 1`` the ranks form the
 reference's 2-D mesh ``reshape(world // mp, mp)``: rank ``r = d * mp + m``
 has data index ``d`` and model index ``m``. The ``mp`` ranks of a data
-index load the same images, and rank ``m`` computes rows ``[m * H / mp,
-(m + 1) * H / mp)`` of every feature map (``spatial_image_sharding``, the
-reference's config #5 1024 px lever; the halo exchanges GSPMD inserts are
-written out in ``parallel/spatial.py``). The data group (ranks of one
+index load the same images, and rank ``m`` computes rows ``[m * c, (m +
+1) * c)`` of every feature map of ``H`` rows, ``c = ceil(H / mp)``, the
+rows past ``H`` padding (``spatial_image_sharding``, the reference's
+config #5 1024 px lever; the row exchanges GSPMD inserts are written out
+in ``parallel/spatial.py``). The data group (ranks of one
 ``m``) sums what the data indexes share, the model group (ranks of one
 ``d``) exchanges rows, and the world sums the gradients and BatchNorm's
 statistics.
@@ -38,9 +39,7 @@ import torch
 import torch.distributed as dist
 
 from shape_based_object_detection_torch.config import MeshConfig, ModelConfig
-from shape_based_object_detection_torch.parallel.spatial import (
-    ROADMAP_UNEVEN, RowShard, check_rows, not_under_model_axis,
-)
+from shape_based_object_detection_torch.parallel.spatial import RowShard
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -227,17 +226,16 @@ def spatial_image_sharding(mesh: Mesh, cfg: MeshConfig = MeshConfig(),
     """The reference's images with the batch over "data" and the rows over
     "model": this rank's place on the model axis, whose ``split`` takes its
     rows of a full NCHW tensor. ``cfg`` names the axes in the reference and
-    is not read here: the axis is the mesh's. With ``model`` the rows are
-    checked: ValueError unless ``model.image_size`` is divisible by the
-    coarsest stride times ``mp`` (RetinaNet's P7, 128: ``mp`` in {1, 2, 4, 8}
-    at 1024 px, {1, 2} at 256), NotImplementedError for SSD, whose maps do
-    not split evenly."""
-    mp = mesh.model_parallelism
+    is not read here: the axis is the mesh's. Any image size splits (the
+    ranks' last rows are padding where it does not split evenly); with
+    ``model``, a size the model itself refuses raises, as SSD's
+    ``ssd_feature_sizes`` does where a map would fall under one row."""
     if model is not None:
-        if model.family != "retinanet":
-            raise not_under_model_axis(f"the {model.family} family", ROADMAP_UNEVEN)
-        check_rows(model.image_size, max(model.anchors.strides), mp)
-    return RowShard(mesh.model_group, mesh.model_index, mp)
+        from shape_based_object_detection_torch.ops import anchors as anchor_lib
+
+        if model.family == "ssd":
+            anchor_lib.ssd_feature_sizes(model.image_size)
+    return RowShard(mesh.model_group, mesh.model_index, mesh.model_parallelism)
 
 
 # ---------------------------------------------------------------------------

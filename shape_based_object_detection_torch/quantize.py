@@ -26,6 +26,14 @@ this product to XLA, not to a Pallas kernel), elsewhere the plain version,
 a float64 convolution of the int8 values, which is exact (every partial sum
 is an integer below 2^53). Both give the same int32, bit for bit.
 
+Under a row shard (image rows split over a model axis, ``row_shard`` set
+on every ``Int8Conv2d`` by ``parallel/spatial.set_row_shard``) each int8
+convolution fetches the rows its window reads, as the float one does, and
+a per-image dynamic scale is the MAX over the model group of every rank's
+real rows' abs-max, so every rank quantizes with the unsplit scale; the
+static and weight-only tiers need no collective. Calibration on a
+row-split module reduces its abs-maxes the same way.
+
 Calibrated scales are keyed by flax module path (``backbone/layer1_0/conv1``;
 a head convolution shared by every pyramid level has one key), so a scales
 file saved by the JAX package loads here, and the reverse.
@@ -42,15 +50,16 @@ quantizers can amplify, as any float difference ahead of them.)
 
 from __future__ import annotations
 
-import copy
 import json
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from shape_based_object_detection_torch.ops.boxes import true_div
+from shape_based_object_detection_torch.parallel import spatial
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 # Calls of torch._int_mm since the process started (or the last reset by a
@@ -259,7 +268,10 @@ class Int8Conv2d(nn.Module):
     (in bf16 they are not ``q`` and ``scale``). The chain depends only on
     the weights, so it runs once here; the result, ``wq`` in OHWI (the
     rows of the product's B) and ``ws`` per output channel, is what stays
-    on the card."""
+    on the card. Under a row shard (``row_shard``) it computes on the
+    rank's rows."""
+
+    row_shard: Optional[spatial.RowShard] = None
 
     def __init__(self, conv: nn.Conv2d, mode: str, act_amax: Optional[float] = None):
         super().__init__()
@@ -271,6 +283,7 @@ class Int8Conv2d(nn.Module):
             raise ValueError("Int8Conv2d takes ungrouped convolutions with explicit "
                              "zero padding")
         self.mode = mode
+        self.kernel_size = conv.kernel_size[0]
         self.stride, self.padding, self.dilation = (
             list(conv.stride), list(conv.padding), list(conv.dilation))
         self.bias = None if conv.bias is None else nn.Parameter(
@@ -290,16 +303,30 @@ class Int8Conv2d(nn.Module):
                 max(float(act_amax), 1e-6) / 127.0, dtype=torch.float32,
                 device=conv.weight.device))
 
-    def quantize_input(self, x: torch.Tensor):
-        """(B, C, H, W) float -> (the int8 input in NHWC, its scale: per
-        image (B, 1, 1, 1) in "dynamic", the calibrated () in "static")."""
+    def input_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The activation scale of ``x`` (B, C, H, W): per image (B, 1, 1, 1)
+        in "dynamic", from the image's abs-max (under a row shard the MAX
+        over the model group of each rank's real rows'), the calibrated ()
+        in "static"."""
+        if self.mode != "dynamic":
+            return self.act_scale
+        shard = self.row_shard
         xf = x.float()
-        if self.mode == "dynamic":  # per image, so a batch's mix cannot move it
-            ls = true_div(torch.clamp(xf.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-6),
-                          127.0)
-        else:
-            ls = self.act_scale
-        xq = torch.clamp(torch.round(xf / ls), -127, 127).to(torch.int8)
+        if shard is not None:
+            xf = xf[:, :, :shard.real(spatial.map_height(x, shard))]
+        # per image, so a batch's mix cannot move it
+        amax = (xf.abs().amax(dim=(1, 2, 3), keepdim=True) if xf.numel()
+                else xf.new_zeros((xf.shape[0], 1, 1, 1)))
+        if shard is not None:
+            dist.all_reduce(amax, dist.ReduceOp.MAX, group=shard.group)
+        return true_div(torch.clamp(amax, min=1e-6), 127.0)
+
+    def quantize_input(self, x: torch.Tensor, ls: Optional[torch.Tensor] = None):
+        """(B, C, H, W) float -> (the int8 input in NHWC, its scale
+        ``input_scale(x)`` unless ``ls`` is given)."""
+        if ls is None:
+            ls = self.input_scale(x)
+        xq = torch.clamp(torch.round(x.float() / ls), -127, 127).to(torch.int8)
         return xq.permute(0, 2, 3, 1), ls
 
     def dequantize_output(self, acc: torch.Tensor, ls: torch.Tensor,
@@ -315,11 +342,23 @@ class Int8Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "weights":
             w = (self.q.to(torch.float32) * self.scale).to(x.dtype)
-            return F.conv2d(x, w, self.bias, self.stride, self.padding, self.dilation)
-        xq, ls = self.quantize_input(x)
-        acc = torch.ops.sbd.int8_conv2d(xq, self.wq, self.stride, self.padding,
-                                        self.dilation)
-        return self.dequantize_output(acc, ls, x.dtype)
+
+            def conv(z, padding):
+                return F.conv2d(z, w, self.bias, self.stride, padding, self.dilation)
+        else:
+            ls = self.input_scale(x)
+
+            def conv(z, padding):
+                xq, _ = self.quantize_input(z, ls)
+                acc = torch.ops.sbd.int8_conv2d(xq, self.wq, self.stride, padding,
+                                                self.dilation)
+                return self.dequantize_output(acc, ls, z.dtype)
+        if self.row_shard is None:
+            return conv(x, self.padding)
+        # the rows the window reads, as they are; the columns padded here
+        return spatial.row_apply(
+            x, self.row_shard, self.kernel_size, self.stride[0], self.padding[0],
+            self.dilation[0], lambda win: conv(win, [0, self.padding[1]]))
 
 
 def _quantized_copy(module: nn.Module, mode: str, activation_scales=None,
@@ -333,7 +372,8 @@ def _quantized_copy(module: nn.Module, mode: str, activation_scales=None,
     if activation_scales is not None and mode != "full":
         raise ValueError("activation_scales only applies to quantize mode 'full'")
     skip = skip_fn if skip_fn is not None else default_int8_skip
-    qmodule = copy.deepcopy(module)
+    shard = spatial.row_shard_of(module)
+    qmodule = spatial.copy_module(module, shard)  # a row-split module stays split
     for name, conv in _eligible_convs(qmodule, min_size):
         if mode == "weights" or skip(name):
             swapped = Int8Conv2d(conv, "weights")
@@ -347,6 +387,7 @@ def _quantized_copy(module: nn.Module, mode: str, activation_scales=None,
                     "calibrate_activation_scales on this model (the scales file "
                     "does not match the model or its skip set)")
             swapped = Int8Conv2d(conv, "static", activation_scales[key])
+        swapped.row_shard = shard
         parent, _, child = name.rpartition(".")
         setattr(qmodule.get_submodule(parent), child, swapped)
     return qmodule
@@ -362,11 +403,8 @@ def quantize_module(module: nn.Module, mode, activation_scales=None, min_size: i
     "full" static; a convolution it lacks raises, naming it. ``skip_fn``
     (a module's qualified name -> bool, default ``default_int8_skip``)
     keeps convolutions in float in "full". ``module`` must be on ``device``
-    (default: the card). A module split by rows over a model axis
-    raises NotImplementedError."""
-    from shape_based_object_detection_torch.parallel.spatial import refuse_row_shard
-
-    refuse_row_shard(module, "an int8 tier")
+    (default: the card). The copy of a module split by rows over a model
+    axis computes on the same rank's rows."""
     dev = resolve_device(device)
     param = next(module.parameters())
     if param.device != dev:
@@ -386,19 +424,28 @@ def calibrate_activation_scales(module: nn.Module, batches, data_cfg=None,
     """One-time PTQ calibration: the float forward of ``module`` over
     ``batches`` ((B, H, W, 3) uint8 arrays), recording each eligible
     convolution's input abs-max with forward pre-hooks, on the module's
-    device, read back once per batch; reduced over all batches. Returns a
-    JSON-able ``{flax module path: abs_max}``."""
+    device, read back once per batch; reduced over all batches. A
+    row-split ``module`` runs on this rank's rows of the batches' images:
+    each convolution's input counts its real rows, and one MAX all-reduce
+    over the model group per batch makes the abs-maxes the whole images',
+    on every rank alike. Returns a JSON-able ``{flax module path:
+    abs_max}``."""
     from shape_based_object_detection_torch.utils import image as image_lib
 
     mean = data_cfg.mean if data_cfg else image_lib.IMAGENET_MEAN
     std = data_cfg.std if data_cfg else image_lib.IMAGENET_STD
     skip = skip_fn if skip_fn is not None else default_int8_skip
     dev = next(module.parameters()).device
+    shard = spatial.row_shard_of(module)
     records: Dict[str, torch.Tensor] = {}
 
     def recorder(key):
         def hook(mod, args):
-            amax = args[0].detach().abs().amax().float()
+            x = args[0].detach()
+            if shard is not None:  # this rank's real rows (none: padding only)
+                x = x[:, :, :shard.real(spatial.map_height(x, shard))]
+            amax = (x.abs().amax().float() if x.numel()
+                    else x.new_zeros((), dtype=torch.float32))
             prev = records.get(key)
             records[key] = amax if prev is None else torch.maximum(prev, amax)
 
@@ -414,10 +461,14 @@ def calibrate_activation_scales(module: nn.Module, batches, data_cfg=None,
             records.clear()
             with torch.inference_mode():
                 x = image_lib.normalize_images(torch.as_tensor(images).to(dev), mean, std)
-                module(x.permute(0, 3, 1, 2))
+                x = x.permute(0, 3, 1, 2)
+                module(x if shard is None else shard.split(x))
             keys = list(records)
             if keys:
-                values = torch.stack([records[k] for k in keys]).tolist()  # one readback
+                values = torch.stack([records[k] for k in keys])
+                if shard is not None:
+                    dist.all_reduce(values, dist.ReduceOp.MAX, group=shard.group)
+                values = values.tolist()  # one readback
                 for k, v in zip(keys, values):
                     amaxes[k] = max(amaxes.get(k, 0.0), v)
     finally:
@@ -465,11 +516,12 @@ def make_quantized_detect_fn(module, anchors_cxcywh, cfg, data_cfg=None, device=
 
 
 def make_serving_detect(module, anchors_cxcywh, cfg, data_cfg, mode, device=None,
-                        activation_scales=None):
+                        activation_scales=None, mesh=None):
     """The serving construction shared by Predictor and the CLIs: returns
     ``(detect_fn, serving_module)`` for quantize ``mode`` ("" is the float
     tier, then ``serving_module`` is ``module``). ``activation_scales``
-    (dict, or a JSON path) makes "full" static."""
+    (dict, or a JSON path) makes "full" static. A ``mesh`` with a model
+    axis splits the images' rows (``make_detect_fn``)."""
     from shape_based_object_detection_torch.detection import make_detect_fn
 
     mode = normalize_quantize_mode(mode)
@@ -477,4 +529,4 @@ def make_serving_detect(module, anchors_cxcywh, cfg, data_cfg, mode, device=None
         raise ValueError("activation_scales only applies to quantize mode 'full'")
     if mode:
         module = quantize_module(module, mode, activation_scales, device=device)
-    return make_detect_fn(module, anchors_cxcywh, cfg, data_cfg, device), module
+    return make_detect_fn(module, anchors_cxcywh, cfg, data_cfg, device, mesh), module

@@ -33,8 +33,8 @@ alike on every rank.
 
 With a model axis (``Mesh.model_parallelism`` > 1) the ranks of one data
 index augment the same images, and each runs the forward on its rows of
-them (``set_row_shard``): halo exchanges within the model group, BatchNorm's
-statistics over the world, the heads' outputs gathered, so every rank of
+them (``set_row_shard``): row fetches within the model group, BatchNorm's
+statistics over the world's real rows, the heads' outputs gathered, so every rank of
 the group matches the data index's images on the full anchors and computes
 the same loss. The positives and the loss terms sum over the data group,
 and the gradients, each rank's rows' share, over the world.
@@ -55,12 +55,13 @@ from shape_based_object_detection_torch.losses import detection_loss
 from shape_based_object_detection_torch.models.resnet import (
     apply_batch_stats, clear_batch_stats, run_segment, set_batch_stats_group,
 )
-from shape_based_object_detection_torch.models.retinanet import conv_precision, set_row_shard
+from shape_based_object_detection_torch.models.retinanet import conv_precision
 from shape_based_object_detection_torch.ops.boxes import true_div
 from shape_based_object_detection_torch.ops.matching import match_batch
 from shape_based_object_detection_torch.parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_, single_process, spatial_image_sharding,
 )
+from shape_based_object_detection_torch.parallel.spatial import set_row_shard
 from shape_based_object_detection_torch.utils import image as image_lib
 from shape_based_object_detection_torch.utils.device import resolve_device
 

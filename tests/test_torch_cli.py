@@ -257,16 +257,45 @@ def test_train_cli_two_processes(tmp_path):
     assert "restored checkpoint at step 3" in out and "done at step 4" in out
 
 
-def test_train_and_eval_cli_split_rows_over_two_processes(tmp_path):
+def _torchrun_env_pair(module, argv, port):
+    """Two processes of ``module`` in a group of two from torchrun's
+    environment."""
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", RANK=str(rank),
+                   LOCAL_RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", module, "--device", "cpu", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
+    return procs
+
+
+def _outputs(procs, timeout=180):
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+def test_train_and_eval_cli_split_rows_over_two_processes(tmp_path, int8_files):
     """``--set mesh.model_parallelism=2`` on two processes: one data index
-    whose two ranks each compute half of every image's rows (256 px, the
-    smallest size whose rows split down to P7). ``train_cli`` logs the
-    single process's losses and val mAP and ends with equal parameter
-    checksums; ``eval_cli`` on its checkpoint, in a group of two from
-    torchrun's environment, prints the single process's metrics."""
+    whose two ranks each compute their rows of every image, at the tiny
+    preset's 128 px, whose P7 (one row) does not split evenly. ``train_cli``
+    logs the single process's losses and val mAP and ends with equal
+    parameter checksums; ``eval_cli`` on its checkpoint, in a group of two
+    from torchrun's environment, prints the single process's metrics: in
+    the float tier; with ``--quantize full --act-scales`` (the static int8
+    tier), ``--tta-hflip`` and ``--tta-scales 128,160`` together; and with
+    ``--artifact``, run whole on each rank."""
     common = ["--batch-size", "2", "--log-every", "1", "--eval-every", "2",
-              "--val-root", "synthetic://val", "--val-batches", "1", *CPU,
-              "--set", "model.image_size=256"]
+              "--val-root", "synthetic://val", "--val-batches", "1", *CPU]
     split = ["--set", "mesh.model_parallelism=2"]
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
@@ -277,15 +306,7 @@ def test_train_and_eval_cli_split_rows_over_two_processes(tmp_path):
          "--process-id", str(i), "--coordinator", f"127.0.0.1:{port}"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
         for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    outs = _outputs(procs)
     sums = [line.split("checksum")[1].strip() for out in outs for line in out.splitlines()
             if "parameter checksum" in line]
     assert len(sums) == 2 and sums[0] == sums[1]
@@ -294,33 +315,25 @@ def test_train_and_eval_cli_split_rows_over_two_processes(tmp_path):
     val = [line for line in outs[0].splitlines() if "voc-mAP(val)" in line]
     assert val and val == [line for line in alone.splitlines() if "voc-mAP(val)" in line]
 
-    args = ["--config", "tiny_retinanet", "--protocol", "voc", "--data-root", "synthetic://val",
-            "--max-batches", "2", "--set", ZERO_THRESHOLD, "--set", "data.batch_size=2",
-            "--set", "model.image_size=256", "--checkpoint-dir", str(tmp_path / "mp")]
-    port, procs = _free_port(), []
-    for rank in range(2):
-        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", RANK=str(rank),
-                   LOCAL_RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "shape_based_object_detection_torch.cli.eval_cli",
-             "--device", "cpu", *args, *split],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
-    assert "{" not in outs[1]
-    got = json.loads(outs[0][outs[0].index("{"):])
-    want = json.loads((lambda t: t[t.index("{"):])(_eval(*args)))
-    assert set(got) == set(want) and want["mAP"] > 0
-    for key, value in want.items():
-        assert np.isclose(got[key], value, rtol=0, atol=1e-6, equal_nan=True), key
+    scales, artifact = int8_files
+    base = ["--config", "tiny_retinanet", "--protocol", "voc", "--data-root", "synthetic://val",
+            "--max-batches", "2", "--set", ZERO_THRESHOLD, "--set", "data.batch_size=2"]
+    weights = ["--checkpoint-dir", str(tmp_path / "mp")]
+    runs = {"float": base + weights,
+            "int8_tta": base + weights + ["--quantize", "full", "--act-scales", scales,
+                                          "--tta-hflip", "--tta-scales", "128,160"],
+            "artifact": base + ["--artifact", artifact]}
+    started = {name: _torchrun_env_pair("shape_based_object_detection_torch.cli.eval_cli",
+                                        args + split, _free_port())
+               for name, args in runs.items()}
+    for name, args in runs.items():
+        outs = _outputs(started[name])
+        assert "{" not in outs[1], name
+        got = json.loads(outs[0][outs[0].index("{"):])
+        want = json.loads((lambda t: t[t.index("{"):])(_eval(*args)))
+        assert set(got) == set(want) and want["mAP"] > 0, name
+        for key, value in want.items():
+            assert np.isclose(got[key], value, rtol=0, atol=1e-6, equal_nan=True), (name, key)
 
 
 def test_eval_cli_under_torchrun_equals_one_process(tmp_path):

@@ -703,9 +703,10 @@ def test_device_cache_loader_on_the_card_equals_cache_loader(tmp_path):
 
 
 def _row_ops_rank(rank, store, outs):
-    """One of two gloo ranks sharing card 0: each op on its half of the
-    rows against the unsplit op's rows (forward, and the input's gradient
-    through the halo exchange's backward), relative to the largest value."""
+    """One of two gloo ranks sharing card 0: each op on its rows of a
+    square map (the ceil layout: 19 and 75 rows split unevenly) against the
+    unsplit op's rows (forward, and the input's gradient through the row
+    fetch's backward), relative to the largest value."""
     import torch.distributed as dist
     import torch.nn.functional as F
 
@@ -718,20 +719,25 @@ def _row_ops_rank(rank, store, outs):
     try:
         shard = RowShard(dist.group.WORLD, rank, 2)
         gen = torch.Generator().manual_seed(3)
-        x = torch.randn(2, 16, 64, 40, generator=gen).cuda()
         errs = {}
-        for k, s, p in ((7, 2, 3), (3, 2, 1), (3, 1, 1), (1, 2, 0), ("pool", 2, 1)):
+        for k, s, p, d, h in ((7, 2, 3, 1, 64), (3, 2, 1, 1, 64), (3, 1, 1, 1, 64),
+                              (1, 2, 0, 1, 64), ("pool", 2, 1, 1, 64), (3, 1, 6, 6, 19),
+                              ("pool_ceil", 2, 0, 1, 75)):
+            x = torch.randn(2, 16, h, h, generator=gen).cuda()
             if k == "pool":
                 op = lambda z, sh: row_max_pool2d(z, 3, s, p, sh)  # noqa: E731
                 plain = lambda z: F.max_pool2d(z, 3, s, p)  # noqa: E731
+            elif k == "pool_ceil":
+                op = lambda z, sh: row_max_pool2d(z, 2, s, p, sh, ceil_mode=True)  # noqa: E731
+                plain = lambda z: F.max_pool2d(z, 2, s, p, ceil_mode=True)  # noqa: E731
             else:
-                conv = torch.nn.Conv2d(16, 8, k, s, p)
+                conv = torch.nn.Conv2d(16, 8, k, s, p, dilation=d)
                 with torch.no_grad():
                     for t in conv.parameters():
                         t.copy_(torch.randn(t.shape, generator=gen))
                 conv = conv.cuda()
                 op = lambda z, sh: row_conv2d(conv, z, sh)  # noqa: E731
-                plain = lambda z: F.conv2d(z, conv.weight, conv.bias, s, p)  # noqa: E731
+                plain = lambda z: F.conv2d(z, conv.weight, conv.bias, s, p, d)  # noqa: E731
             full = x.clone().requires_grad_()
             want = plain(full)
             w = torch.randn(want.shape, generator=gen).cuda()
@@ -739,9 +745,12 @@ def _row_ops_rank(rank, store, outs):
             part = shard.split(x).clone().requires_grad_()
             got = op(part, shard)
             (got * shard.split(w)).sum().backward()
-            errs[f"{k}/{s}"] = (
-                float((got - shard.split(want)).abs().max() / want.abs().max()),
-                float((part.grad - shard.split(full.grad)).abs().max() / full.grad.abs().max()))
+            r_out, r_in = shard.rows(want.shape[2]), shard.rows(h)
+            n_out, n_in = r_out.stop - r_out.start, r_in.stop - r_in.start
+            errs[f"{k}/{s}/{h}"] = (
+                float((got[:, :, :n_out] - want[:, :, r_out]).abs().max() / want.abs().max()),
+                float((part.grad[:, :, :n_in] - full.grad[:, :, r_in]).abs().max()
+                      / full.grad.abs().max()))
         torch.save(errs, outs[rank])
     finally:
         dist.destroy_process_group()
@@ -749,8 +758,9 @@ def _row_ops_rank(rank, store, outs):
 
 @pytest.mark.cuda
 def test_row_ops_on_the_card_equal_the_unsplit_ops(tmp_path):
-    """``row_conv2d`` (7x7/2, 3x3/2, 3x3/1, 1x1/2) and ``row_max_pool2d``
-    on two gloo ranks sharing the card, each on half of the rows, against
+    """``row_conv2d`` (7x7/2, 3x3/2, 3x3/1, 1x1/2, SSD's dilated conv6 on 19
+    rows) and ``row_max_pool2d`` (3x3/2, the ceil-mode 2x2/2 on 75 rows) on
+    two gloo ranks sharing the card, each on its rows, against
     ``F.conv2d`` / ``F.max_pool2d`` on the whole tensor: forward and input
     gradient within 1e-5 of the largest value (float32, TF32 off; cuDNN
     picks its algorithm per shape, so the sums' order may differ)."""
@@ -772,7 +782,7 @@ def test_row_ops_on_the_card_equal_the_unsplit_ops(tmp_path):
                 p.terminate()
     for path in outs:
         errs = torch.load(path)
-        assert len(errs) == 5
+        assert len(errs) == 7
         for name, (fwd, grad) in errs.items():
             assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)
 

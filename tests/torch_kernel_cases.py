@@ -252,3 +252,30 @@ def match_check(anchors, gt, labels, valid, sw, variances, cfg=None, exact=False
               and reg_err <= 1e-5 * max(1.0, float(want[4].abs().max()))
               and result_reg <= 1e-5 * max(1.0, float(plain.reg_targets.abs().max())))
     return passed, max(reg_err, q_err), line
+
+
+def same_detections(got, want) -> bool:
+    """Detections ``(boxes, scores, labels, valid)`` (tensors or arrays,
+    one row per image) equal at the bounds of the reference's spatial
+    sharding check (``tests/test_parallel.py:150-156``: labels equal,
+    scores within rtol 1e-5 atol 1e-7, boxes within rtol 1e-5 atol 1e-6),
+    each image's valid detections matched one to one in any order: where
+    two scores lie within float32's last bits of each other (an untrained
+    SSD's softmax scores crowd into a few percent), a split of the sums may
+    rank them either way, and the slots then hold them swapped."""
+    got = [np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in got]
+    want = [np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in want]
+    for b in range(want[3].shape[0]):
+        gi, wi = np.flatnonzero(got[3][b]), np.flatnonzero(want[3][b])
+        if len(gi) != len(wi):
+            return False
+        free = list(gi)
+        for i in wi:
+            hit = next((j for j in free if got[2][b, j] == want[2][b, i]
+                        and np.isclose(got[1][b, j], want[1][b, i], rtol=1e-5, atol=1e-7)
+                        and np.allclose(got[0][b, j], want[0][b, i], rtol=1e-5, atol=1e-6)),
+                       None)
+            if hit is None:
+                return False
+            free.remove(hit)
+    return True
