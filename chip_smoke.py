@@ -204,6 +204,31 @@ The group ``tools`` drives the checkpoint tools and the examples:
      parameters) and 2 train_cli steps from it with --init-params (K2
      twice); both examples as subprocesses, exiting 0 with their lines.
 
+The group ``accuracy`` drives the accuracy tools (``tools/matching_analysis``,
+``tools/ablate_matching``, ``tools/ablate_tta``, ``tools/ablate_quantize``):
+
+ 35. matching_analysis on R50-FPN-512's 49104 anchors and SSD300's 8732 with
+     200 GTs: K2 once per shape weight (5 per model), positives and matched
+     GTs bit-equal to the plain route's, the table; SSD300's rows at w = 0
+     and 0.3 equal to the recorded 4.64 / 6.25 positives per GT and 23.4 % /
+     25.5 % extreme-aspect coverage; K2 timed at (1, A, 200);
+ 36. both arms of seed 7 of ablate_matching at full width (SSD300, 20
+     classes, the device loader, b16, 512 training and 128 validation
+     images, aspect_std 1.2, 1000 steps each): K2 once per step, K1 once per
+     validation batch and bit-equal to its plain version on each arm's last
+     validation batch (trained scores, timed), each arm's mAP above the
+     fresh model's on the same split; each arm's row and the paired delta;
+ 37. the w = 0 arm's weights through ablate_tta's and ablate_quantize's
+     scoring: plain and hflip TTA, the float, weight-only, full-dynamic and
+     full-static tiers, K1 once per batch in each, the float tier's metrics
+     equal to the plain mode's, each int8 tier's drift; K1 bit-equal on the
+     hflip merge and timed;
+ 38. ablate_tta's RetinaNet branch: R50-FPN-512 in bf16 trained 24 steps at
+     b8, then plain, hflip, and (512, 640) multi-scale TTA with and without
+     hflip on 8 images: K1 once per batch and 3 times per 2-scale image; K1
+     bit-equal on a 2-scale merge of those weights at score threshold 0
+     (at 0.05 so few steps leave no candidate) and timed.
+
 Every process the run starts ends before it does: the script is the child
 subreaper of its descendants (a worker whose parent exits is re-parented to
 it), and after the last phase, or a failed one, it stops multiprocessing's
@@ -220,6 +245,7 @@ without printing a result when there is no CUDA device or a phase fails.
     python3 chip_smoke.py --only data,dist   # the loaders, data parallelism
     python3 chip_smoke.py --only spatial     # the model axis
     python3 chip_smoke.py --only tools       # the checkpoint tools, the examples
+    python3 chip_smoke.py --only accuracy    # the accuracy tools
 """
 
 from __future__ import annotations
@@ -4812,9 +4838,332 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     return out, k1, k2
 
 
+ACCURACY_STEPS = 1000  # per arm of the ablation's seed
+ACCURACY_R50_STEPS = 24  # ablate_tta's RetinaNet branch: drives the path only
+ACCURACY_RECORDED = {0.0: (4.64, 23.4), 0.3: (6.25, 25.5)}  # ssd300, 200 GTs (the reference's)
+
+
+def accuracy_matching_analysis(torch, config, matching, matching_cuda, reset_counts):
+    """tools/matching_analysis on R50-FPN-512's 49104 anchors and SSD300's
+    8732 with 200 GTs: 5 K2 launches per model, each result (positives,
+    matched GT) bit-equal to the plain route's on the same card tensors,
+    the table printed; SSD300's rows at w = 0 and 0.3 as the reference
+    recorded them. K2 timed at (1, A, 200). Returns (results, K2 entries)."""
+    from shape_based_object_detection_torch.ops.anchors import anchors_for_model
+    from shape_based_object_detection_torch.tools import matching_analysis as ma
+
+    out, k2 = {}, {}
+    launches = 0
+    for model, tag in (("retinanet_r50_fpn", "r50"), ("ssd300", "ssd300")):
+        cfg = config.get_config(model)
+        reset_counts()
+        n, n_extreme, rows = ma.analysis_rows(model, 200, 0, "cuda")
+        torch.cuda.synchronize()
+        if matching_cuda.launches != len(ma.SHAPE_WEIGHTS):
+            raise RuntimeError(f"matching_analysis on {model} launched K2 "
+                               f"{matching_cuda.launches} times for {len(ma.SHAPE_WEIGHTS)} rows")
+        launches += matching_cuda.launches
+        anchors = anchors_for_model(cfg.model).cuda()
+        gt, _ = ma.synthetic_gt(200, 0)
+        variances = cfg.model.anchors.variances
+        for w in ma.SHAPE_WEIGHTS:
+            got = ma.match_one(anchors, gt, w, variances, "auto")
+            want = ma.match_one(anchors, gt, w, variances, "plain")
+            if not (torch.equal(got.positive, want.positive)
+                    and torch.equal(got.matched_gt_idx, want.matched_gt_idx)):
+                raise RuntimeError(f"matching_analysis on {model}, w={w}: K2's positives or "
+                                   "matched GTs differ from the plain route's")
+        log(f"[accuracy] matching_analysis --model {model} ({nvidia_smi_line()}): 200 synthetic "
+            f"GT on {n} anchors ({n_extreme} with extreme aspect); K2 launches "
+            f"{len(ma.SHAPE_WEIGHTS)}, positives and matched GTs bit-equal to the plain route")
+        log(f"[accuracy] {'shape_w':>8} {'pos/gt':>8} {'gt w/ pos':>10} {'extreme w/ pos':>15}")
+        for w, per_gt, covered, extreme in rows:
+            log(f"[accuracy] {w:>8.1f} {per_gt:>8.2f} {covered:>9.1f}% {extreme:>14.1f}%")
+            out[f"accuracy_analysis_{tag}_w{w:g}"] = [per_gt, covered, extreme]
+        if model == "ssd300":
+            got = {w: (round(per_gt, 2), round(extreme, 1))
+                   for w, per_gt, _, extreme in rows}
+            for w, want in ACCURACY_RECORDED.items():
+                if got[w] != want:
+                    raise RuntimeError(f"matching_analysis ssd300 w={w}: (positives per GT, "
+                                       f"extreme coverage %) {got[w]}, recorded {want}")
+            log("[accuracy] ssd300 rows at w = 0 and 0.3 equal the recorded 4.64 / 6.25 "
+                "positives per GT and 23.4 % / 25.5 % extreme-aspect coverage")
+        lbl = torch.ones((1, 200), dtype=torch.int32, device=anchors.device)
+        ok = torch.ones((1, 200), dtype=torch.bool, device=anchors.device)
+        mcfg = dataclasses.replace(cfg, match=ma.match_config(0.3))
+        timing = match_timing(torch, matching, matching_cuda, anchors, mcfg,
+                              f"matching_analysis {model} (w = 0.3)",
+                              torch.from_numpy(gt)[None].cuda(), lbl, ok)
+        k2.update({f"accuracy_analysis_{tag}_{k}": v for k, v in timing.items()})
+    k2["accuracy_analysis_launches"] = launches
+    return out, k2
+
+
+def eval_candidates(torch, detection, arm, images):
+    """The candidates ``make_eval_step`` sends K1 for ``images`` (uint8 on
+    the card): the forward with the arm's weights, then the exact two-stage
+    top-k."""
+    from shape_based_object_detection_torch.models.retinanet import conv_precision
+    from shape_based_object_detection_torch.utils import image as image_lib
+
+    cfg = arm.cfg
+    with torch.inference_mode(), conv_precision(cfg.model.precision):
+        x = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
+        cls_logits, box_offsets = arm.module(x.permute(0, 3, 1, 2))
+        return detection.select_candidates(cls_logits.float(), box_offsets.float(),
+                                           arm.anchors, cfg.model)
+
+
+def mode_line(name, ev):
+    coco, voc = ev.coco(), ev.voc()
+    return (f"{name}: COCO mAP {coco['mAP']:.4f}, AP50 {coco['AP50']:.4f}, "
+            f"AR100 {coco['AR100']:.4f}, VOC mAP {voc['mAP']:.4f}")
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    """Equal metric dicts, NaN equal to NaN."""
+    return set(a) == set(b) and all(
+        same_metrics(a[k], b[k]) if isinstance(a[k], dict)
+        else (a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))) for k in a)
+
+
+def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, reset_counts,
+                  workdir):
+    """Both arms of seed 7 of tools/ablate_matching at full width (SSD300, 20
+    classes, device loader, b16, 512/128 images, aspect_std 1.2): one K2
+    launch per step, one K1 per validation batch, K1 bit-equal to its plain
+    version on each arm's last validation batch, each arm's mAP above the
+    fresh model's on the same split. Returns (results, K1 entries, K2
+    entries, the w = 0 arm, args)."""
+    from shape_based_object_detection_torch.tools import ablate_matching as am
+    from shape_based_object_detection_torch.tools._ablation import device_field
+
+    args = am._parser().parse_args([
+        "--model-preset", "ssd300", "--num-classes", "20", "--loader", "device",
+        "--batch", "16", "--steps", str(ACCURACY_STEPS), "--lr", "1e-3",
+        "--train-images", "512", "--val-images", "128", "--max-objects", "8",
+        "--aspect-std", "1.2", "--seeds", "1",
+        "--cache-dir", os.path.join(workdir, "ablate_cache")])
+    out, k1, k2 = {}, {"accuracy_launches": 0}, {"accuracy_launches": 0}
+    device = device_field("cuda")
+    rows, arms = [], {}
+    val_batches = -(-args.val_images // args.batch)
+    for w in (0.0, args.shape_weight):
+        t = time.perf_counter()
+        arm = am.build_arm(args, w, seed=7)
+        built_s = time.perf_counter() - t
+        fresh = am.score_arm(arm)
+        reset_counts()
+        _, last_loss, train_s = am.train_arm(args, arm, w)
+        steps_k2 = matching_cuda.launches
+        reset_counts()
+        t = time.perf_counter()
+        metrics = am.score_arm(arm)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t
+        score_k1 = nms_cuda.launches
+        k1["accuracy_launches"] += score_k1
+        k2["accuracy_launches"] += steps_k2
+        row = am.arm_row(args, w, 7, metrics, last_loss, train_s, device)
+        rows.append(row)
+        log(f"[accuracy] ablate_matching arm w={w:g} seed 7: {json.dumps(row)}")
+        log(f"[accuracy] arm w={w:g}: built (caches, model) in {built_s:.2f} s, "
+            f"{args.steps} steps in {train_s:.2f} s ({1e3 * train_s / args.steps:.2f} ms per "
+            f"step, host clock), scored in {score_s:.2f} s; K2 launches {steps_k2} in "
+            f"{args.steps} steps, K1 launches {score_k1} in {val_batches} validation "
+            f"batches; mAP {metrics['mAP']:.4f} against the fresh model's {fresh['mAP']:.4f}")
+        if steps_k2 != args.steps or score_k1 != val_batches:
+            raise RuntimeError(f"arm w={w}: K2 {steps_k2} for {args.steps} steps, K1 "
+                               f"{score_k1} for {val_batches} batches")
+        if not metrics["mAP"] > fresh["mAP"]:
+            raise RuntimeError(f"arm w={w}: mAP {metrics['mAP']} after {args.steps} steps is "
+                               f"not above the fresh model's {fresh['mAP']}")
+        *_, (last, _) = list(arm.val_batches())
+        cands = eval_candidates(torch, detection, arm, last.images)
+        err = k1_on(torch, nms, cands, arm.cfg.model.detect,
+                    f"arm w={w:g}'s last validation batch (trained scores)")
+        k1[f"accuracy_w{w:g}_max_abs_err"] = err
+        out[f"accuracy_arm_w{w:g}_mAP"] = metrics["mAP"]
+        out[f"accuracy_arm_w{w:g}_fresh_mAP"] = fresh["mAP"]
+        out[f"accuracy_arm_w{w:g}_ms_per_step"] = 1e3 * train_s / args.steps
+        if w == 0.0:
+            k1.update({f"accuracy_{k}": v for k, v in nms_timing(
+                nms, nms_cuda, cands, arm.cfg.model.detect,
+                "the trained SSD300's last validation batch").items()})
+            first = next(iter(arm.train_batches(0)))
+            k2.update({f"accuracy_step_{k}": v for k, v in match_timing(
+                torch, matching, matching_cuda, arm.anchors, arm.cfg,
+                "the ablation's first (unaugmented) training batch, SSD300 w = 0",
+                first.boxes, first.labels, first.valid).items()})
+        arms[w] = arm
+    summary = am.summary(args, [7], rows, device)
+    log(f"[accuracy] ablate_matching seed 7 paired delta (shape - IoU) "
+        f"{summary['value']:+.4f} mAP after {args.steps} steps per arm ({device}): "
+        f"{json.dumps({k: v for k, v in summary.items() if k != 'arms'})}")
+    out["accuracy_delta"] = summary["value"]
+    del arms[args.shape_weight]
+    return out, k1, k2, arms[0.0], args
+
+
+def accuracy_tta_and_tiers(torch, detection, nms, nms_cuda, reset_counts, arm, args):
+    """The w = 0 arm's trained SSD300 through tools/ablate_tta's and
+    tools/ablate_quantize's scoring (score threshold 0.05 as those tools
+    set it) on the ablation's validation split: plain and hflip TTA, the
+    four tiers; one K1 launch per batch in each; the float tier's metrics
+    equal to the plain mode's; K1 bit-equal on the hflip merge and timed.
+    Returns (results, K1 entries)."""
+    from shape_based_object_detection_torch.data.pipeline import Loader
+    from shape_based_object_detection_torch.tools import ablate_matching as am
+    from shape_based_object_detection_torch.tools import ablate_quantize as aq
+    from shape_based_object_detection_torch.tools import ablate_tta as at
+    from shape_based_object_detection_torch.tools._ablation import serving_module
+
+    cfg = arm.cfg
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, detect=dataclasses.replace(cfg.model.detect, score_threshold=0.05)))
+    _, val_ds = am._splits(args, cfg)
+    loader = Loader(val_ds, cfg.data.batch_size, cfg.data.max_boxes, shuffle=False)
+    batches = len(val_ds) // cfg.data.batch_size
+    module, anchors = serving_module(cfg.model, arm.module, "cuda")
+    out, k1, evs = {}, {"accuracy_tta_launches": 0, "accuracy_tier_launches": 0}, {}
+    for name, hflip in (("plain", False), ("hflip-tta", True)):
+        reset_counts()
+        evs[name] = at.score_mode(cfg, module, anchors, loader, hflip, "cuda")
+        torch.cuda.synchronize()
+        launched = nms_cuda.launches
+        k1["accuracy_tta_launches"] += launched
+        log(f"[accuracy] ablate_tta {mode_line(name, evs[name])}; K1 launches {launched} "
+            f"in {batches} batches")
+        if launched != batches:
+            raise RuntimeError(f"ablate_tta {name} launched K1 {launched} times in "
+                               f"{batches} batches")
+    scales = aq.calibrate(module, loader, 2, cfg.data)
+    for name, mode, static in aq.TIERS:
+        reset_counts()
+        evs[name] = aq.score_tier(cfg, module, anchors, loader, mode,
+                                  scales if static else None, "cuda")
+        torch.cuda.synchronize()
+        launched = nms_cuda.launches
+        k1["accuracy_tier_launches"] += launched
+        log(f"[accuracy] ablate_quantize {mode_line(name, evs[name])}; K1 launches "
+            f"{launched} in {batches} batches")
+        if launched != batches:
+            raise RuntimeError(f"ablate_quantize {name} launched K1 {launched} times in "
+                               f"{batches} batches")
+    maps = {name: ev.coco()["mAP"] for name, ev in evs.items()}
+    if not same_metrics(evs["float"].coco(), evs["plain"].coco()):
+        raise RuntimeError(f"the float tier's metrics differ from the plain mode's: "
+                           f"{maps['float']} against {maps['plain']}")
+    for name in ("weights", "full-dynamic", "full-static"):
+        log(f"[accuracy] tier {name}: COCO mAP {maps[name]:.4f}, drift from float "
+            f"{maps[name] - maps['float']:+.4f}")
+    log(f"[accuracy] the float tier's metrics equal the plain mode's to the bit (mAP "
+        f"{maps['float']!r}); hflip TTA {maps['hflip-tta'] - maps['plain']:+.4f} mAP; "
+        f"largest |int8 drift| {max(abs(v - maps['float']) for v in maps.values()):.4f} "
+        f"({nvidia_smi_line()})")
+    out.update({f"accuracy_map_{name}": v for name, v in maps.items()})
+    images = torch.from_numpy(next(iter(loader.batches())).images).cuda()
+    tcfg = dataclasses.replace(cfg.model, detect=dataclasses.replace(
+        cfg.model.detect, tta_hflip=True))
+    merge = merge_candidates(torch, detection, module, anchors, tcfg, images)
+    k1["accuracy_hflip_max_abs_err"] = k1_on(torch, nms, merge, cfg.model.detect,
+                                             "the trained SSD300's hflip merge")
+    k1.update({f"accuracy_hflip_{k}": v for k, v in nms_timing(
+        nms, nms_cuda, merge, cfg.model.detect, "the trained SSD300's hflip merge").items()})
+    return out, k1
+
+
+def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
+    """tools/ablate_tta's RetinaNet branch: R50-FPN-512 (the preset in bf16)
+    trained a few dozen steps at b8 with hflip augmentation, then plain and
+    hflip TTA and multi-scale TTA at (512, 640) without and with hflip on 8
+    held-out images: K1 once per batch, and 3 times per image of the 2-scale
+    merge. The mAP after so few steps means nothing. Returns (results, K1
+    entries)."""
+    from shape_based_object_detection_torch.tools import ablate_tta as at
+    from shape_based_object_detection_torch.tools._ablation import (
+        eval_split, preset_config, serving_module, train_preset,
+    )
+
+    cfg = preset_config("retinanet_r50_fpn", 8, hflip=True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+    t = time.perf_counter()
+    trained, _ = train_preset(cfg, ACCURACY_R50_STEPS, 16, "cuda", augment=True,
+                              what=" (hflip aug on)")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    dataset, loader = eval_split(cfg, 8)
+    module, anchors = serving_module(cfg.model, trained, "cuda")
+    scales = at.multiscale_scales(cfg.model.image_size)
+    k1, out = {"accuracy_multiscale_launches": 0}, {}
+    for name, hflip, multi in (("plain", False, False), ("hflip-tta", True, False),
+                               (f"ms-tta{list(scales)}", False, True),
+                               ("ms+hflip-tta", True, True)):
+        reset_counts()
+        if multi:
+            ev = at.score_multiscale(cfg, module, dataset, scales, hflip, "cuda")
+            want = 3 * len(dataset)
+        else:
+            ev = at.score_mode(cfg, module, anchors, loader, hflip, "cuda")
+            want = 1
+        torch.cuda.synchronize()
+        launched = nms_cuda.launches
+        if multi:
+            k1["accuracy_multiscale_launches"] += launched
+        log(f"[accuracy] ablate_tta R50-FPN-512 bf16 {mode_line(name, ev)}; K1 launches "
+            f"{launched} (want {want})")
+        if launched != want:
+            raise RuntimeError(f"ablate_tta R50 {name} launched K1 {launched} times, not {want}")
+    log(f"[accuracy] R50-FPN-512 bf16: {ACCURACY_R50_STEPS} steps at b8 in {train_s:.2f} s "
+        "(host clock, first-call set-up included); after so few steps its mAP means nothing: "
+        "this drives the path")
+    out["accuracy_r50_train_s"] = train_s
+    from shape_based_object_detection_torch.detection import (
+        MultiScaleDetector, _concat, _resize_host,
+    )
+
+    # the merge's candidates at score threshold 0: after so few steps the
+    # focal prior keeps every score under the tool's 0.05
+    zero = dataclasses.replace(cfg.model, detect=dataclasses.replace(
+        cfg.model.detect, score_threshold=0.0))
+    msd = MultiScaleDetector(zero, module, scales, cfg.data, "cuda")
+    img = dataset[0][0]
+    with torch.inference_mode():
+        merge = _concat([fn(_resize_host(img, s)[None]) for fn, s in msd._per_scale])
+    k1["accuracy_multiscale_max_abs_err"] = k1_on(
+        torch, nms, merge, zero.detect, f"the trained R50's 2-scale merge {scales}, threshold 0")
+    k1.update({f"accuracy_multiscale_{k}": v for k, v in nms_timing(
+        nms, nms_cuda, merge, zero.detect, "the trained R50's 2-scale merge").items()})
+    return out, k1
+
+
+def phase_accuracy(torch, config, detection, nms, nms_cuda, matching, matching_cuda,
+                   reset_counts, workdir):
+    """The accuracy tools on the card. Returns (results, K1 entries, K2
+    entries)."""
+    t0 = time.perf_counter()
+    out, k2 = accuracy_matching_analysis(torch, config, matching, matching_cuda, reset_counts)
+    arms_out, k1, arms_k2, arm, args = accuracy_arms(
+        torch, detection, nms, nms_cuda, matching, matching_cuda, reset_counts, workdir)
+    out.update(arms_out)
+    k2.update(arms_k2)
+    tiers_out, tiers_k1 = accuracy_tta_and_tiers(torch, detection, nms, nms_cuda,
+                                                 reset_counts, arm, args)
+    out.update(tiers_out)
+    k1.update(tiers_k1)
+    del arm
+    torch.cuda.empty_cache()
+    ms_out, ms_k1 = accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts)
+    out.update(ms_out)
+    k1.update(ms_k1)
+    out["accuracy_s"] = time.perf_counter() - t0
+    log(f"[accuracy] the group in {out['accuracy_s']:.1f} s")
+    return out, k1, k2
+
+
 PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist",
-          "spatial",
-          "tools")
+          "spatial", "tools", "accuracy")
 
 
 def main() -> int:
@@ -5084,6 +5433,16 @@ def run_phases(torch, want, only, t0, workdir):
         results.update(tools_out)
         k1.update(tools_k1)
         k2.update(tools_k2)
+
+    # the accuracy tools: the matching analysis, the shape-matching
+    # ablation's two arms, TTA and the int8 tiers on the trained weights
+    if want("accuracy"):
+        acc_out, acc_k1, acc_k2 = phase_accuracy(torch, config, detection, nms, nms_cuda,
+                                                 matching, matching_cuda, reset_counts,
+                                                 workdir)
+        results.update(acc_out)
+        k1.update(acc_k1)
+        k2.update(acc_k2)
 
     log(json.dumps(results))
     if only:

@@ -277,3 +277,25 @@ def test_tools_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_checkpoint.main(["--model", "tiny_ssd", "--torch-ckpt", "unused.pth",
                                  "--out", str(tmp_path / "x.pt")])
+
+
+ACCURACY_TOOLS = {  # module: arguments of a short run, without --device
+    "matching_analysis": ["--model", "tiny_ssd", "--num-gt", "4"],
+    "ablate_matching": ["--steps", "1", "--seeds", "1", "--train-images", "4",
+                        "--val-images", "4", "--batch", "2"],
+    "ablate_tta": ["--steps", "1", "--train-images", "4", "--eval-images", "4", "--batch", "2"],
+    "ablate_quantize": ["--steps", "1", "--train-images", "4", "--eval-images", "4",
+                        "--batch", "2"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCURACY_TOOLS))
+def test_accuracy_tools_default_to_the_card(monkeypatch, name):
+    """Without ``--device cpu`` each accuracy tool runs on the card, and
+    raises where there is none, before it builds or trains anything."""
+    import importlib
+
+    tool = importlib.import_module(f"shape_based_object_detection_torch.tools.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(ACCURACY_TOOLS[name])
