@@ -250,6 +250,7 @@ without printing a result when there is no CUDA device or a phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1822,8 +1823,6 @@ class Tee:
 def run_cli(main, argv):
     """``main(argv)`` in this process with its stdout shown as [cli] lines;
     returns the text."""
-    import contextlib
-
     tee = Tee("[cli] ")
     with contextlib.redirect_stdout(tee):
         main(argv)
@@ -2810,7 +2809,6 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
     """detect_cli on SSD300 (config #1) with hflip and multi-scale TTA and
     --save-viz, in this process; serve_cli as a subprocess on a free port:
     /healthz, one /detect, then SIGTERM."""
-    import contextlib
     import io
 
     from PIL import Image
@@ -4900,25 +4898,37 @@ def accuracy_matching_analysis(torch, config, matching, matching_cuda, reset_cou
     return out, k2
 
 
-def eval_candidates(torch, detection, arm, images):
-    """The candidates ``make_eval_step`` sends K1 for ``images`` (uint8 on
-    the card): the forward with the arm's weights, then the exact two-stage
-    top-k."""
-    from shape_based_object_detection_torch.models.retinanet import conv_precision
-    from shape_based_object_detection_torch.utils import image as image_lib
+@contextlib.contextmanager
+def last_nms_input(detection):
+    """While the block runs, ``detection.run_nms`` (through which every
+    detect path reaches K1) keeps the candidate set it was last handed:
+    the yielded list holds it, so a check runs K1 on what the path gave."""
+    kept, run = [], detection.run_nms
 
-    cfg = arm.cfg
-    with torch.inference_mode(), conv_precision(cfg.model.precision):
-        x = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
-        cls_logits, box_offsets = arm.module(x.permute(0, 3, 1, 2))
-        return detection.select_candidates(cls_logits.float(), box_offsets.float(),
-                                           arm.anchors, cfg.model)
+    def keep(*args, **kw):
+        kept[:] = [args[:4]]
+        return run(*args, **kw)
+
+    detection.run_nms = keep
+    try:
+        yield kept
+    finally:
+        detection.run_nms = run
 
 
-def mode_line(name, ev):
-    coco, voc = ev.coco(), ev.voc()
-    return (f"{name}: COCO mAP {coco['mAP']:.4f}, AP50 {coco['AP50']:.4f}, "
-            f"AR100 {coco['AR100']:.4f}, VOC mAP {voc['mAP']:.4f}")
+def counted(torch, nms_cuda, reset_counts, launched, kept, detection):
+    """An ``each(name, run)`` for ``score_modes``/``score_tiers``: the
+    launch counts set to 0 before each mode, its K1 launches read after
+    into ``launched``, the candidates of its last NMS call into ``kept``."""
+    def each(name, run):
+        reset_counts()
+        with last_nms_input(detection) as cands:
+            ev = run()
+        torch.cuda.synchronize()
+        launched[name], kept[name] = nms_cuda.launches, cands[0]
+        return ev
+
+    return each
 
 
 def same_metrics(a: dict, b: dict) -> bool:
@@ -4938,6 +4948,7 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
     entries, the w = 0 arm, args)."""
     from shape_based_object_detection_torch.tools import ablate_matching as am
     from shape_based_object_detection_torch.tools._ablation import device_field
+    from tests.torch_kernel_cases import match_check
 
     args = am._parser().parse_args([
         "--model-preset", "ssd300", "--num-classes", "20", "--loader", "device",
@@ -4953,13 +4964,27 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
         t = time.perf_counter()
         arm = am.build_arm(args, w, seed=7)
         built_s = time.perf_counter() - t
+        mcfg = arm.cfg.match
+        first = next(iter(arm.train_batches(0)))
+        passed, err, line = match_check(arm.anchors, first.boxes, first.labels, first.valid,
+                                        mcfg.shape_weight, arm.cfg.model.anchors.variances,
+                                        cfg=mcfg, exact=True)
+        (b, g), a = first.labels.shape, arm.anchors.shape[0]
+        log(f"[kernel] match_anchors on the ablation's first (unaugmented) training batch "
+            f"(B, A, G)=({b}, {a}, {g}), {int(first.valid.sum())} valid GTs, shape_weight {mcfg.shape_weight:g}, force_match_for_each_gt "
+            f"{mcfg.force_match_for_each_gt}: {line}")
+        if not passed:
+            raise RuntimeError(f"match_anchors differs from the plain version on the "
+                               f"ablation's training batch at shape_weight {w:g}")
+        k2[f"accuracy_w{w:g}_max_abs_err"] = err
         fresh = am.score_arm(arm)
         reset_counts()
         _, last_loss, train_s = am.train_arm(args, arm, w)
         steps_k2 = matching_cuda.launches
         reset_counts()
         t = time.perf_counter()
-        metrics = am.score_arm(arm)
+        with last_nms_input(detection) as kept:
+            metrics = am.score_arm(arm)
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t
         score_k1 = nms_cuda.launches
@@ -4979,8 +5004,7 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
         if not metrics["mAP"] > fresh["mAP"]:
             raise RuntimeError(f"arm w={w}: mAP {metrics['mAP']} after {args.steps} steps is "
                                f"not above the fresh model's {fresh['mAP']}")
-        *_, (last, _) = list(arm.val_batches())
-        cands = eval_candidates(torch, detection, arm, last.images)
+        cands = kept[0]  # the eval step's, on the last validation batch
         err = k1_on(torch, nms, cands, arm.cfg.model.detect,
                     f"arm w={w:g}'s last validation batch (trained scores)")
         k1[f"accuracy_w{w:g}_max_abs_err"] = err
@@ -4991,7 +5015,6 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
             k1.update({f"accuracy_{k}": v for k, v in nms_timing(
                 nms, nms_cuda, cands, arm.cfg.model.detect,
                 "the trained SSD300's last validation batch").items()})
-            first = next(iter(arm.train_batches(0)))
             k2.update({f"accuracy_step_{k}": v for k, v in match_timing(
                 torch, matching, matching_cuda, arm.anchors, arm.cfg,
                 "the ablation's first (unaugmented) training batch, SSD300 w = 0",
@@ -5011,13 +5034,12 @@ def accuracy_tta_and_tiers(torch, detection, nms, nms_cuda, reset_counts, arm, a
     tools/ablate_quantize's scoring (score threshold 0.05 as those tools
     set it) on the ablation's validation split: plain and hflip TTA, the
     four tiers; one K1 launch per batch in each; the float tier's metrics
-    equal to the plain mode's; K1 bit-equal on the hflip merge and timed.
-    Returns (results, K1 entries)."""
+    equal to the plain mode's; K1 bit-equal on the hflip merge of the last
+    batch and timed there. Returns (results, K1 entries)."""
     from shape_based_object_detection_torch.data.pipeline import Loader
     from shape_based_object_detection_torch.tools import ablate_matching as am
     from shape_based_object_detection_torch.tools import ablate_quantize as aq
     from shape_based_object_detection_torch.tools import ablate_tta as at
-    from shape_based_object_detection_torch.tools._ablation import serving_module
 
     cfg = arm.cfg
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -5025,32 +5047,16 @@ def accuracy_tta_and_tiers(torch, detection, nms, nms_cuda, reset_counts, arm, a
     _, val_ds = am._splits(args, cfg)
     loader = Loader(val_ds, cfg.data.batch_size, cfg.data.max_boxes, shuffle=False)
     batches = len(val_ds) // cfg.data.batch_size
-    module, anchors = serving_module(cfg.model, arm.module, "cuda")
-    out, k1, evs = {}, {"accuracy_tta_launches": 0, "accuracy_tier_launches": 0}, {}
-    for name, hflip in (("plain", False), ("hflip-tta", True)):
-        reset_counts()
-        evs[name] = at.score_mode(cfg, module, anchors, loader, hflip, "cuda")
-        torch.cuda.synchronize()
-        launched = nms_cuda.launches
-        k1["accuracy_tta_launches"] += launched
-        log(f"[accuracy] ablate_tta {mode_line(name, evs[name])}; K1 launches {launched} "
-            f"in {batches} batches")
-        if launched != batches:
-            raise RuntimeError(f"ablate_tta {name} launched K1 {launched} times in "
-                               f"{batches} batches")
-    scales = aq.calibrate(module, loader, 2, cfg.data)
-    for name, mode, static in aq.TIERS:
-        reset_counts()
-        evs[name] = aq.score_tier(cfg, module, anchors, loader, mode,
-                                  scales if static else None, "cuda")
-        torch.cuda.synchronize()
-        launched = nms_cuda.launches
-        k1["accuracy_tier_launches"] += launched
-        log(f"[accuracy] ablate_quantize {mode_line(name, evs[name])}; K1 launches "
-            f"{launched} in {batches} batches")
-        if launched != batches:
-            raise RuntimeError(f"ablate_quantize {name} launched K1 {launched} times in "
-                               f"{batches} batches")
+    launched, kept = {}, {}
+    each = counted(torch, nms_cuda, reset_counts, launched, kept, detection)
+    with contextlib.redirect_stdout(Tee("[accuracy] ablate_tta/ablate_quantize ")):
+        evs = at.score_modes(cfg, arm.module, val_ds, loader, "cuda", each=each)
+        evs.update(aq.score_tiers(cfg, arm.module, loader, 2, "cuda", each=each))
+    log(f"[accuracy] K1 launches per mode and tier {launched} in {batches} batches each")
+    if any(n != batches for n in launched.values()):
+        raise RuntimeError(f"K1 launches {launched}, not one per batch of {batches}")
+    k1 = {"accuracy_tta_launches": launched["plain"] + launched["hflip-tta"],
+          "accuracy_tier_launches": sum(launched[name] for name, *_ in aq.TIERS)}
     maps = {name: ev.coco()["mAP"] for name, ev in evs.items()}
     if not same_metrics(evs["float"].coco(), evs["plain"].coco()):
         raise RuntimeError(f"the float tier's metrics differ from the plain mode's: "
@@ -5060,13 +5066,11 @@ def accuracy_tta_and_tiers(torch, detection, nms, nms_cuda, reset_counts, arm, a
             f"{maps[name] - maps['float']:+.4f}")
     log(f"[accuracy] the float tier's metrics equal the plain mode's to the bit (mAP "
         f"{maps['float']!r}); hflip TTA {maps['hflip-tta'] - maps['plain']:+.4f} mAP; "
-        f"largest |int8 drift| {max(abs(v - maps['float']) for v in maps.values()):.4f} "
+        f"largest |int8 drift| "
+        f"{max(abs(maps[name] - maps['float']) for name, *_ in aq.TIERS):.4f} "
         f"({nvidia_smi_line()})")
-    out.update({f"accuracy_map_{name}": v for name, v in maps.items()})
-    images = torch.from_numpy(next(iter(loader.batches())).images).cuda()
-    tcfg = dataclasses.replace(cfg.model, detect=dataclasses.replace(
-        cfg.model.detect, tta_hflip=True))
-    merge = merge_candidates(torch, detection, module, anchors, tcfg, images)
+    out = {f"accuracy_map_{name}": v for name, v in maps.items()}
+    merge = kept["hflip-tta"]
     k1["accuracy_hflip_max_abs_err"] = k1_on(torch, nms, merge, cfg.model.detect,
                                              "the trained SSD300's hflip merge")
     k1.update({f"accuracy_hflip_{k}": v for k, v in nms_timing(
@@ -5081,6 +5085,7 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
     held-out images: K1 once per batch, and 3 times per image of the 2-scale
     merge. The mAP after so few steps means nothing. Returns (results, K1
     entries)."""
+    from shape_based_object_detection_torch.detection import MultiScaleDetector
     from shape_based_object_detection_torch.tools import ablate_tta as at
     from shape_based_object_detection_torch.tools._ablation import (
         eval_split, preset_config, serving_module, train_preset,
@@ -5094,47 +5099,33 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     dataset, loader = eval_split(cfg, 8)
-    module, anchors = serving_module(cfg.model, trained, "cuda")
-    scales = at.multiscale_scales(cfg.model.image_size)
-    k1, out = {"accuracy_multiscale_launches": 0}, {}
-    for name, hflip, multi in (("plain", False, False), ("hflip-tta", True, False),
-                               (f"ms-tta{list(scales)}", False, True),
-                               ("ms+hflip-tta", True, True)):
-        reset_counts()
-        if multi:
-            ev = at.score_multiscale(cfg, module, dataset, scales, hflip, "cuda")
-            want = 3 * len(dataset)
-        else:
-            ev = at.score_mode(cfg, module, anchors, loader, hflip, "cuda")
-            want = 1
-        torch.cuda.synchronize()
-        launched = nms_cuda.launches
-        if multi:
-            k1["accuracy_multiscale_launches"] += launched
-        log(f"[accuracy] ablate_tta R50-FPN-512 bf16 {mode_line(name, ev)}; K1 launches "
-            f"{launched} (want {want})")
-        if launched != want:
-            raise RuntimeError(f"ablate_tta R50 {name} launched K1 {launched} times, not {want}")
+    launched, kept = {}, {}
+    with contextlib.redirect_stdout(Tee("[accuracy] ablate_tta R50-FPN-512 bf16 ")):
+        at.score_modes(cfg, trained, dataset, loader, "cuda",
+                       each=counted(torch, nms_cuda, reset_counts, launched, kept, detection))
+    want = {name: 3 * len(dataset) if name.startswith("ms") else 1 for name in launched}
+    log(f"[accuracy] ablate_tta R50-FPN-512 bf16: K1 launches {launched} (want {want})")
+    if launched != want or len(want) != 4:
+        raise RuntimeError(f"ablate_tta R50 launched K1 {launched} times, not {want}")
     log(f"[accuracy] R50-FPN-512 bf16: {ACCURACY_R50_STEPS} steps at b8 in {train_s:.2f} s "
         "(host clock, first-call set-up included); after so few steps its mAP means nothing: "
         "this drives the path")
-    out["accuracy_r50_train_s"] = train_s
-    from shape_based_object_detection_torch.detection import (
-        MultiScaleDetector, _concat, _resize_host,
-    )
-
+    k1 = {"accuracy_multiscale_launches": sum(n for name, n in launched.items()
+                                              if name.startswith("ms"))}
+    out = {"accuracy_r50_train_s": train_s}
     # the merge's candidates at score threshold 0: after so few steps the
     # focal prior keeps every score under the tool's 0.05
     zero = dataclasses.replace(cfg.model, detect=dataclasses.replace(
         cfg.model.detect, score_threshold=0.0))
+    module, _ = serving_module(cfg.model, trained, "cuda")
+    scales = at.multiscale_scales(cfg.model.image_size)
     msd = MultiScaleDetector(zero, module, scales, cfg.data, "cuda")
-    img = dataset[0][0]
-    with torch.inference_mode():
-        merge = _concat([fn(_resize_host(img, s)[None]) for fn, s in msd._per_scale])
+    with last_nms_input(detection) as merge:  # its last NMS call is the merge
+        msd(dataset[0][0])
     k1["accuracy_multiscale_max_abs_err"] = k1_on(
-        torch, nms, merge, zero.detect, f"the trained R50's 2-scale merge {scales}, threshold 0")
+        torch, nms, merge[0], zero.detect, f"the trained R50's 2-scale merge {scales}, threshold 0")
     k1.update({f"accuracy_multiscale_{k}": v for k, v in nms_timing(
-        nms, nms_cuda, merge, zero.detect, "the trained R50's 2-scale merge").items()})
+        nms, nms_cuda, merge[0], zero.detect, "the trained R50's 2-scale merge").items()})
     return out, k1
 
 

@@ -45,17 +45,22 @@ def tier_row(ev) -> dict:
             "voc_mAP": round(voc["mAP"], 4)}
 
 
-def score_tiers(cfg, trained, loader, calib_batches: int, device) -> dict:
+def score_tiers(cfg, trained, loader, calib_batches: int, device, each=None) -> dict:
     """Every tier on the trained module's weights, the static scales
-    calibrated on the first ``calib_batches`` batches: name -> Evaluator."""
+    calibrated on the first ``calib_batches`` batches: name -> Evaluator.
+    ``each(name, run)``, where given, scores each tier: it calls ``run()``
+    and returns the Evaluator that gives."""
+    from functools import partial
+
     from shape_based_object_detection_torch.tools._ablation import serving_module
 
     module, anchors = serving_module(cfg.model, trained, device)
     scales = calibrate(module, loader, calib_batches, cfg.data)
+    each = each or (lambda name, run: run())
     tiers = {}
     for name, mode, static in TIERS:
-        tiers[name] = score_tier(cfg, module, anchors, loader, mode,
-                                 scales if static else None, device)
+        tiers[name] = each(name, partial(score_tier, cfg, module, anchors, loader, mode,
+                                         scales if static else None, device))
         print(json.dumps({"tier": name, **tier_row(tiers[name])}), flush=True)
     return tiers
 

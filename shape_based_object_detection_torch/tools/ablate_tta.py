@@ -72,27 +72,30 @@ def mode_row(ev) -> dict:
             "AR100": round(coco["AR100"], 4), "voc_mAP": round(voc["mAP"], 4)}
 
 
-def score_modes(cfg, trained, dataset, loader, device) -> dict:
+def score_modes(cfg, trained, dataset, loader, device, each=None) -> dict:
     """Every mode of the ablation on the trained module's weights: name ->
     Evaluator. Plain and hflip TTA; for RetinaNet also multi-scale TTA at
     ``multiscale_scales`` without and with hflip (SSD's extras depend on
-    the image size)."""
+    the image size). ``each(name, run)``, where given, scores each mode:
+    it calls ``run()`` and returns the Evaluator that gives."""
+    from functools import partial
+
     from shape_based_object_detection_torch.tools._ablation import serving_module
 
     module, anchors = serving_module(cfg.model, trained, device)
-    modes = {}
-
-    def keep(name, ev):
-        modes[name] = ev
-        print(json.dumps({"mode": name, **mode_row(ev)}), flush=True)
-
-    for name, hflip in (("plain", False), ("hflip-tta", True)):
-        keep(name, score_mode(cfg, module, anchors, loader, hflip, device))
+    each = each or (lambda name, run: run())
+    runs = {name: partial(score_mode, cfg, module, anchors, loader, hflip, device)
+            for name, hflip in (("plain", False), ("hflip-tta", True))}
     if cfg.model.family == "retinanet":
         scales = multiscale_scales(cfg.model.image_size)
-        keep(f"ms-tta{list(scales)}",
-             score_multiscale(cfg, module, dataset, scales, False, device))
-        keep("ms+hflip-tta", score_multiscale(cfg, module, dataset, scales, True, device))
+        runs[f"ms-tta{list(scales)}"] = partial(score_multiscale, cfg, module, dataset,
+                                                scales, False, device)
+        runs["ms+hflip-tta"] = partial(score_multiscale, cfg, module, dataset, scales, True,
+                                       device)
+    modes = {}
+    for name, run in runs.items():
+        modes[name] = each(name, run)
+        print(json.dumps({"mode": name, **mode_row(modes[name])}), flush=True)
     return modes
 
 
