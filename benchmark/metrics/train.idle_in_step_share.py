@@ -1,0 +1,7 @@
+"""The device's idle time inside the program's ``train.step`` spans over the traced window's idle time (%)."""
+
+from benchmark.harness import program
+
+
+def read(rec):
+    return program.idle_in_share(rec, "train.step")

@@ -18,6 +18,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 
@@ -185,7 +186,10 @@ class Loader:
         pinned memory and copied with ``non_blocking=True`` on a copy stream;
         the consumer's current stream waits for the copy before it gets the
         batch. An error in the producer is raised in the consumer; a
-        consumer that stops early stops the producer."""
+        consumer that stops early stops the producer. The producer marks the
+        epoch's last batch (its ``steps_per_epoch()``-th), after which the
+        consumer ends without another wait. While a profiler records, each
+        wait for a batch is the span ``data.wait`` (``utils/metrics``)."""
         dev = resolve_device(device)
         q: queue_lib.Queue = queue_lib.Queue(maxsize=self.prefetch)
         stop = object()
@@ -220,32 +224,40 @@ class Loader:
             try:
                 if copy_stream is not None:
                     torch.cuda.set_device(dev)
-                for batch in self.batches(epoch):
-                    if cancel.is_set() or not put(transfer(batch)):
+                last = self.steps_per_epoch()  # the count of batches(epoch)
+                for k, batch in enumerate(self.batches(epoch), 1):
+                    if cancel.is_set() or not put((*transfer(batch), k == last)):
                         return
             except BaseException as e:  # raised in the consumer, never a hang
                 error.append(e)
             finally:
                 put(stop)
 
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
+        started = False
         try:
             while True:
-                item = q.get()
+                with trace.span("data.wait"):
+                    if not started:  # the epoch's first wait starts its producer
+                        threading.Thread(target=producer, daemon=True).start()
+                        started = True
+                    item = q.get()
+                    if item is not stop:
+                        batch, done, last = item
+                        if done is not None:
+                            consumer = torch.cuda.current_stream(dev)
+                            consumer.wait_event(done)
+                            for x in batch:
+                                if x is not None:
+                                    # made on the copy stream, used on the
+                                    # consumer's
+                                    x.record_stream(consumer)
                 if item is stop:
                     if error:
                         raise error[0]
                     break
-                batch, done = item
-                if done is not None:
-                    consumer = torch.cuda.current_stream(dev)
-                    consumer.wait_event(done)
-                    for x in batch:
-                        if x is not None:
-                            # made on the copy stream, used on the consumer's
-                            x.record_stream(consumer)
                 yield batch
+                if last:
+                    break
         finally:
             cancel.set()
             while True:  # release a producer blocked on a full queue

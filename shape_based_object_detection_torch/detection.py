@@ -35,6 +35,7 @@ from shape_based_object_detection_torch.ops import boxes as box_ops
 from shape_based_object_detection_torch.ops import nms as nms_lib
 from shape_based_object_detection_torch.ops import nms_cuda
 from shape_based_object_detection_torch.utils import image as image_lib
+from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 # DetectConfig.nms_backend values -> the greedy NMS routes. "pallas", "scan"
@@ -117,8 +118,10 @@ def run_nms(
 def postprocess(cls_logits, box_offsets, anchors_cxcywh,
                 cfg: ModelConfig) -> nms_lib.Detections:
     """Decode + score + class-aware NMS. Labels are 0-based foreground ids."""
-    cands = select_candidates(cls_logits, box_offsets, anchors_cxcywh, cfg)
-    return run_nms(*cands, cfg)
+    with trace.span("detect.select"):
+        cands = select_candidates(cls_logits, box_offsets, anchors_cxcywh, cfg)
+    with trace.span("detect.nms"):
+        return run_nms(*cands, cfg)
 
 
 def mirror_boxes_x(boxes_xyxy: torch.Tensor) -> torch.Tensor:
@@ -149,8 +152,10 @@ def postprocess_tta_hflip(cls_logits, box_offsets, anchors_cxcywh,
     """Merge-postprocess for hflip TTA: one class-aware NMS over the union of
     both halves' candidates (``tta_hflip_candidates``). The output is
     flip-equivariant by construction."""
-    return run_nms(*tta_hflip_candidates(cls_logits, box_offsets,
-                                         anchors_cxcywh, cfg), cfg)
+    with trace.span("detect.select"):
+        cands = tta_hflip_candidates(cls_logits, box_offsets, anchors_cxcywh, cfg)
+    with trace.span("detect.nms"):
+        return run_nms(*cands, cfg)
 
 
 class DetectProgram(nn.Module):
@@ -159,7 +164,9 @@ class DetectProgram(nn.Module):
     ``cfg.detect.tta_hflip``). Takes (B, S, S, 3) uint8, or float in [0,
     1], on the module's device; returns ``(boxes, scores, labels, valid)``.
     ``make_detect_fn`` runs it eagerly and ``export.export_detect`` traces
-    it: the live and the exported program are one."""
+    it: the live and the exported program are one. While a profiler
+    records, its phases are spans (``utils/metrics``): ``detect.forward``,
+    ``detect.select`` and ``detect.nms``; a traced program holds none."""
 
     def __init__(self, module: nn.Module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
                  data_cfg: DataConfig | None = None, row_shard=None):
@@ -172,14 +179,15 @@ class DetectProgram(nn.Module):
         self.std = tuple(data_cfg.std if data_cfg else image_lib.IMAGENET_STD)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = image_lib.normalize_images(images, self.mean, self.std)
         tta = self.cfg.detect.tta_hflip
-        if tta:  # one doubled-batch forward; W is dim 2 of NHWC
-            x = torch.cat([x, x.flip(2)], 0)
-        x = x.permute(0, 3, 1, 2)
-        if self.row_shard is not None:
-            x = self.row_shard.split(x)
-        cls_logits, box_offsets = self.module(x)
+        with trace.span("detect.forward"):
+            x = image_lib.normalize_images(images, self.mean, self.std)
+            if tta:  # one doubled-batch forward; W is dim 2 of NHWC
+                x = torch.cat([x, x.flip(2)], 0)
+            x = x.permute(0, 3, 1, 2)
+            if self.row_shard is not None:
+                x = self.row_shard.split(x)
+            cls_logits, box_offsets = self.module(x)
         post = postprocess_tta_hflip if tta else postprocess
         return tuple(post(cls_logits, box_offsets, self.anchors, self.cfg))
 

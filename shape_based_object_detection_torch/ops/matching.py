@@ -25,6 +25,7 @@ import torch
 
 from shape_based_object_detection_torch.config import MatchConfig
 from shape_based_object_detection_torch.ops import boxes as box_ops
+from shape_based_object_detection_torch.utils import metrics as trace
 
 # MatchConfig.backend -> route. "jnp" and "pallas" are the reference's names,
 # so its configs load unchanged; "auto" picks by the tensors' device.
@@ -191,25 +192,27 @@ def match_batch(
     """Batched matcher. ``cfg.backend``: "auto" runs the CUDA kernel for
     CUDA tensors and the plain version for CPU tensors; "cuda" (or the
     reference's "pallas") always the kernel, which raises on CPU tensors;
-    "plain" (or "jnp") always the plain version."""
+    "plain" (or "jnp") always the plain version. While a profiler records
+    it is the span ``train.match`` (``utils/metrics``)."""
     route = _BACKENDS.get(cfg.backend)
     if route is None:
         raise ValueError(f"unknown match backend {cfg.backend!r}")
     if route == "auto":
         route = "cuda" if gt_boxes_xyxy.is_cuda else "plain"
-    if route == "cuda":
-        from shape_based_object_detection_torch.ops.matching_cuda import (
-            match_reductions_cuda,
-        )
+    with trace.span("train.match"):
+        if route == "cuda":
+            from shape_based_object_detection_torch.ops.matching_cuda import (
+                match_reductions_cuda,
+            )
 
-        outs = match_reductions_cuda(
-            anchors_cxcywh, gt_boxes_xyxy, gt_labels, gt_valid,
-            shape_weight=cfg.shape_weight, tau=cfg.shape_tau,
-            variances=tuple(variances))
-        return _assemble_kernel_outputs(anchors_cxcywh, gt_boxes_xyxy, gt_labels,
-                                        gt_valid, *outs, cfg, variances)
-    best_q, best_g, gt_a = _dense_reductions(anchors_cxcywh, gt_boxes_xyxy,
-                                             gt_valid, cfg.shape_weight,
-                                             cfg.shape_tau)
-    return _assign_from_reductions(anchors_cxcywh, gt_boxes_xyxy, gt_labels,
-                                   gt_valid, best_q, best_g, gt_a, cfg, variances)
+            outs = match_reductions_cuda(
+                anchors_cxcywh, gt_boxes_xyxy, gt_labels, gt_valid,
+                shape_weight=cfg.shape_weight, tau=cfg.shape_tau,
+                variances=tuple(variances))
+            return _assemble_kernel_outputs(anchors_cxcywh, gt_boxes_xyxy, gt_labels,
+                                            gt_valid, *outs, cfg, variances)
+        best_q, best_g, gt_a = _dense_reductions(anchors_cxcywh, gt_boxes_xyxy,
+                                                 gt_valid, cfg.shape_weight,
+                                                 cfg.shape_tau)
+        return _assign_from_reductions(anchors_cxcywh, gt_boxes_xyxy, gt_labels,
+                                       gt_valid, best_q, best_g, gt_a, cfg, variances)

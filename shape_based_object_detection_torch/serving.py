@@ -24,6 +24,7 @@ from shape_based_object_detection_torch.config import ExperimentConfig
 from shape_based_object_detection_torch.models.factory import build_model
 from shape_based_object_detection_torch.ops.boxes import boxes_to_original
 from shape_based_object_detection_torch.quantize import make_serving_detect
+from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 from shape_based_object_detection_torch.utils.image import (
     effective_decode_backend, letterbox_image_host, load_resized_image_host,
@@ -110,7 +111,13 @@ class _BatchedServing:
     share: buckets, upload, ``submit``/``poll``, ``predict``, ``warmup``.
     A subclass sets ``batch_size``, ``bucket_sizes``, ``min_score``,
     ``size``, ``letterbox``, ``device``, ``decode_backend`` and
-    ``_detect`` (images on the device -> Detections)."""
+    ``_detect`` (images on the device -> Detections).
+
+    While a profiler records (``utils/metrics``), each batch's phases are
+    spans: ``serve.submit`` (``serve.prepare``, ``serve.upload``,
+    ``serve.launch``) and ``serve.readback``."""
+
+    _submitted = 0  # batches submitted so far
 
     def _upload(self, batch: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(batch)
@@ -125,10 +132,24 @@ class _BatchedServing:
                 return b
         return self.batch_size  # prepare_batch refuses more
 
-    def _launch(self, images: Sequence):
-        batch, sizes = prepare_batch(images, self.size, self._bucket_for(len(images)),
-                                     self.letterbox, self.decode_backend)
-        return self._detect(self._upload(batch)), sizes
+    def _submit(self, images: Sequence) -> Tuple:
+        """(detections in flight, sizes, the batch's number from 1): the
+        number is the id of the batch's ``serve.submit`` and
+        ``serve.readback`` spans."""
+        self._submitted += 1
+        with trace.span("serve.submit", batch=self._submitted):
+            with trace.span("serve.prepare"):
+                batch, sizes = prepare_batch(images, self.size,
+                                             self._bucket_for(len(images)),
+                                             self.letterbox, self.decode_backend)
+            with trace.span("serve.upload"):
+                x = self._upload(batch)
+            with trace.span("serve.launch"):
+                return self._detect(x), sizes, self._submitted
+
+    def _readback(self, det, sizes, batch: int) -> List[Detection]:
+        with trace.span("serve.readback", batch=batch):
+            return unpack_detections(det, sizes, self.min_score, self.letterbox)
 
     def warmup(self) -> None:
         """One batch of each bucket, read back: builds
@@ -143,15 +164,14 @@ class _BatchedServing:
         """Launch a batch of at most ``batch_size`` images without waiting
         for it. Several batches may be in flight; ``poll`` returns them in
         submission order."""
-        self._pending.append(self._launch(images))
+        self._pending.append(self._submit(images))
 
     def poll(self) -> List[Detection]:
         """Wait for the oldest batch in flight and return its unpadded
         detections."""
         if not self._pending:
             raise RuntimeError("poll() without a batch in flight: submit() first")
-        return unpack_detections(*self._pending.popleft(), self.min_score,
-                                 self.letterbox)
+        return self._readback(*self._pending.popleft())
 
     def predict(self, images: Sequence) -> List[Detection]:
         """Any request size: ceil(len / batch_size) batches, each padded to
@@ -160,14 +180,12 @@ class _BatchedServing:
         out: List[Detection] = []
         pending: Optional[Tuple] = None
         for i in range(0, len(images), self.batch_size):
-            launched = self._launch(images[i:i + self.batch_size])
+            launched = self._submit(images[i:i + self.batch_size])
             if pending is not None:
-                out.extend(unpack_detections(*pending, self.min_score,
-                                             self.letterbox))
+                out.extend(self._readback(*pending))
             pending = launched
         if pending is not None:
-            out.extend(unpack_detections(*pending, self.min_score,
-                                         self.letterbox))
+            out.extend(self._readback(*pending))
         return out
 
 

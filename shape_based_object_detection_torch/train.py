@@ -38,6 +38,13 @@ statistics over the world's real rows, the heads' outputs gathered, so every ran
 the group matches the data index's images on the full anchors and computes
 the same loss. The positives and the loss terms sum over the data group,
 and the gradients, each rank's rows' share, over the world.
+
+While a ``torch.profiler`` session records, the step's phases are spans
+(``utils/metrics``): ``train.step`` (with the step's number) around
+``train.augment``, ``train.forward``, ``train.match`` (in ``match_batch``),
+``train.loss``, ``train.backward`` and ``train.update``; at its end the step
+adds the caching allocator's device segments created since the last step
+to ``mem.device_allocs``.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from shape_based_object_detection_torch.parallel.mesh import (
 )
 from shape_based_object_detection_torch.parallel.spatial import set_row_shard
 from shape_based_object_detection_torch.utils import image as image_lib
+from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
@@ -298,12 +306,13 @@ def make_loss_fn(module: nn.Module, anchors: torch.Tensor, cfg: ExperimentConfig
         return module(images, train=True)
 
     def loss_fn(images, boxes, labels, valid):
-        with _autocast(cfg, device):
+        with trace.span("train.forward"), _autocast(cfg, device):
             cls_logits, box_offsets = run_segment(forward, images, remat=whole_remat)
         with torch.no_grad():
             match = match_batch(anchors, boxes, labels, valid, cfg.match, variances)
-        return detection_loss(cls_logits.float(), box_offsets.float(), match,
-                              cfg.loss, group)
+        with trace.span("train.loss"):
+            return detection_loss(cls_logits.float(), box_offsets.float(), match,
+                                  cfg.loss, group)
 
     return loss_fn
 
@@ -328,34 +337,36 @@ def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
     # inside this context (tests/test_torch_server.py checks it).
     with conv_precision(cfg.model.precision):
         loss, metrics = loss_fn(images, boxes, labels, valid)
-        loss.backward()
-    # the batch statistics of the forward, once, as the reference's aux
-    apply_batch_stats(state.module)
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    summed = [metrics[k] for k in SUMMED_METRICS]
-    # one coalesced all-reduce: the ranks' gradients of their shares sum to
-    # the global batch's gradient, their loss terms to its loss. Under a
-    # model axis the ranks of a data index hold the same loss terms: those
-    # sum over the data axis alone
-    if mesh.model_parallelism == 1:
-        all_reduce_(grads + summed, mesh)
-    else:
-        all_reduce_(grads, mesh)
-        all_reduce_(summed, mesh, data_axis=True)
-    metrics["grad_norm"] = global_norm(grads)
-    applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
-    d = cfg.train.ema_decay
-    if d > 0 and applied:
-        # EMA follows optimizer updates, not micro-batches
-        ema = list(state.ema.values())
-        with torch.no_grad():
-            torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
-    for p in params:
-        p.grad = None
-    state.step += 1
-    return state, metrics
+        with trace.span("train.backward"):
+            loss.backward()
+    with trace.span("train.update"):
+        # the batch statistics of the forward, once, as the reference's aux
+        apply_batch_stats(state.module)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        summed = [metrics[k] for k in SUMMED_METRICS]
+        # one coalesced all-reduce: the ranks' gradients of their shares sum to
+        # the global batch's gradient, their loss terms to its loss. Under a
+        # model axis the ranks of a data index hold the same loss terms: those
+        # sum over the data axis alone
+        if mesh.model_parallelism == 1:
+            all_reduce_(grads + summed, mesh)
+        else:
+            all_reduce_(grads, mesh)
+            all_reduce_(summed, mesh, data_axis=True)
+        metrics["grad_norm"] = global_norm(grads)
+        applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
+        d = cfg.train.ema_decay
+        if d > 0 and applied:
+            # EMA follows optimizer updates, not micro-batches
+            ema = list(state.ema.values())
+            with torch.no_grad():
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, metrics
 
 
 def _batch_on(batch: Batch, dev: torch.device):
@@ -405,16 +416,20 @@ def make_train_step(module: nn.Module, anchors: torch.Tensor,
     dev, mesh, opt, loss_fn, mask = _step_parts(module, anchors, cfg, device, mesh)
 
     def train_step(state: TrainState, batch: Batch):
-        images, boxes, labels, valid = _batch_on(batch, dev)
-        if augment:
-            images, boxes, labels, valid = augment_batch(
-                state.generator, images, boxes, labels, valid, cfg.data,
-                cfg.model.image_size, mesh.data_index, mesh.data_size)
-        else:
-            images = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
-        x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
-        return _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
-                                labels, valid, mesh)
+        with trace.span("train.step", step=state.step):
+            with trace.span("train.augment"):
+                images, boxes, labels, valid = _batch_on(batch, dev)
+                if augment:
+                    images, boxes, labels, valid = augment_batch(
+                        state.generator, images, boxes, labels, valid, cfg.data,
+                        cfg.model.image_size, mesh.data_index, mesh.data_size)
+                else:
+                    images = image_lib.normalize_images(images, cfg.data.mean, cfg.data.std)
+            x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+            out = _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
+                                   labels, valid, mesh)
+        trace.count_device_allocs(dev)
+        return out
 
     return train_step
 
@@ -474,19 +489,23 @@ def make_train_step_pipelined(module: nn.Module, anchors: torch.Tensor,
         return Carry(*out, ready)
 
     def prime(state: TrainState, batch: Batch) -> Tuple[TrainState, Carry]:
-        return state, augment(state, batch)
+        with trace.span("train.augment"):
+            return state, augment(state, batch)
 
     def step(state: TrainState, carry, next_batch: Batch):
-        images, boxes, labels, valid = (torch.as_tensor(t).to(dev) for t in carry[:4])
-        ready = carry.ready if isinstance(carry, Carry) else None
-        # the next batch's augmentation is queued first, so the side stream
-        # runs it while the main stream takes this step's grad and update
-        new_carry = augment(state, next_batch)
-        if ready is not None:
-            torch.cuda.current_stream(dev).wait_event(ready)
-        x = images.permute(0, 3, 1, 2)
-        state, metrics = _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
-                                          labels, valid, mesh)
+        with trace.span("train.step", step=state.step):
+            images, boxes, labels, valid = (torch.as_tensor(t).to(dev) for t in carry[:4])
+            ready = carry.ready if isinstance(carry, Carry) else None
+            # the next batch's augmentation is queued first, so the side stream
+            # runs it while the main stream takes this step's grad and update
+            with trace.span("train.augment"):
+                new_carry = augment(state, next_batch)
+            if ready is not None:
+                torch.cuda.current_stream(dev).wait_event(ready)
+            x = images.permute(0, 3, 1, 2)
+            state, metrics = _grad_and_update(loss_fn, opt, mask, cfg, state, x, boxes,
+                                              labels, valid, mesh)
+        trace.count_device_allocs(dev)
         return state, new_carry, metrics
 
     return prime, step
