@@ -199,7 +199,8 @@ def module_device(module: nn.Module) -> torch.device:
 
 def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
                    data_cfg: DataConfig | None = None, device=None, mesh=None):
-    """Returns ``detect(images) -> Detections``, which runs ``DetectProgram``.
+    """Returns ``detect(images) -> Detections``, which runs ``DetectProgram``
+    (``detect.program``) eagerly.
 
     ``images``: (B, H, W, 3) uint8 (numpy or tensor) with H = W =
     ``cfg.image_size``, or float already in [0, 1]; normalization runs on
@@ -232,6 +233,7 @@ def make_detect_fn(module, anchors_cxcywh: torch.Tensor, cfg: ModelConfig,
     def detect(images) -> nms_lib.Detections:
         return nms_lib.Detections(*program(torch.as_tensor(images).to(dev, non_blocking=True)))
 
+    detect.program = program  # what serving captures as a CUDA graph
     return detect
 
 

@@ -72,7 +72,7 @@ def greedy_nms(
     area = (x1 - x0).clamp(min=0.0) * (y1 - y0).clamp(min=0.0)
     n = scores.shape[-1]
     iota = torch.arange(n, device=scores.device)
-    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=scores.device)
+    thr = torch.full((), iou_threshold, dtype=torch.float32, device=scores.device)
     live = torch.where(valid, scores.float(), _NEG_INF)
 
     idx_out, score_out, ok_out = [], [], []

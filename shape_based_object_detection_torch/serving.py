@@ -9,21 +9,35 @@ overlaps the device (PyTorch launches asynchronously on CUDA);
 ``Predictor`` serves a model in the float or an int8 tier (``quantize.py``);
 ``ArtifactPredictor`` serves an exported ``.sbdx`` program (``export.py``)
 with the same surface and no model code.
+
+On the card a ``Predictor`` captures each bucket's ``DetectProgram`` once,
+at its first batch (``warmup`` runs one of each), as a CUDA graph, and
+every later batch of the bucket is one replay: the host enqueues a copy
+and a launch instead of the program's few hundred kernels. The buckets'
+graphs hold their device memory in one shared pool. The paths that a graph
+cannot hold stay eager: the CPU, a module split by rows over a model axis
+(its halo exchanges are collectives), Soft-NMS (its loop makes host
+constants per call) and ``ArtifactPredictor``. On every CUDA path each
+batch's results are copied into pinned host memory behind its launch, and
+``poll`` waits for that batch's own event, not for the batches launched
+after it.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from shape_based_object_detection_torch import quantize as quantize_lib
 from shape_based_object_detection_torch.config import ExperimentConfig
 from shape_based_object_detection_torch.models.factory import build_model
+from shape_based_object_detection_torch.ops import nms_cuda
 from shape_based_object_detection_torch.ops.boxes import boxes_to_original
-from shape_based_object_detection_torch.quantize import make_serving_detect
+from shape_based_object_detection_torch.parallel.spatial import row_shard_of
 from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 from shape_based_object_detection_torch.utils.image import (
@@ -86,7 +100,7 @@ def prepare_batch(images: Sequence, size: int, batch_size: int,
 def unpack_detections(det, sizes, min_score: float = 0.0,
                       letterbox: bool = False) -> List[Detection]:
     """Fixed-size Detections -> per-image unpadded pixel-space lists (reads
-    the device results back, so it waits for them)."""
+    results still on the device back, so it waits for them)."""
     boxes, scores, labels, valid = (t.cpu() for t in det)
     hw = torch.tensor(sizes, dtype=torch.float32).reshape(-1, 1, 2)
     boxes = boxes_to_original(boxes[:len(sizes)], hw[..., 0], hw[..., 1],
@@ -106,6 +120,70 @@ def default_bucket_sizes(batch_size: int) -> list:
     return [b for b in (1, 2, 4, 8, 16, 32, 64) if b < batch_size] + [batch_size]
 
 
+# the modules whose ``launches`` count a hand-written kernel or an int8
+# product that detect can launch
+_LAUNCH_COUNTERS = (nms_cuda, quantize_lib)
+
+
+def graph_capturable(program, device: torch.device) -> bool:
+    """Whether ``program`` (a ``DetectProgram``) can be served as a CUDA
+    graph on ``device``: on the card, on whole images (a row shard's halo
+    exchanges are collectives), with greedy NMS (Soft-NMS's loop makes host
+    constants per call)."""
+    return (device.type == "cuda" and program.row_shard is None
+            and row_shard_of(program.module) is None
+            and program.cfg.detect.soft_nms_sigma <= 0)
+
+
+class _BucketGraph:
+    """One bucket's detect as a CUDA graph. Each upload writes ``input``,
+    the static (b, S, S, 3) uint8 batch. The first ``run`` serves its batch
+    from an eager warm-up pass on a side stream (which also builds the
+    kernels and fills the device constants), then captures ``program`` into
+    ``pool``; each later ``run`` replays it. A replay writes ``outputs``,
+    the static Detections, and the next replay of any graph of the pool
+    overwrites them: the caller copies them out first, on the same stream."""
+
+    def __init__(self, program, shape, device: torch.device, pool):
+        self.program, self.pool = program, pool
+        self.input = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.graph = None
+        self.outputs = None
+        self.launches = ()  # (module, launches a replay adds to its count)
+
+    def run(self) -> Tuple[torch.Tensor, ...]:
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        for counter, n in self.launches:
+            counter.launches += n
+        if trace.tracing():
+            trace.count("serve.graph_replays")
+        return self.outputs
+
+    def _capture(self) -> Tuple[torch.Tensor, ...]:
+        with torch.cuda.device(self.input.device):
+            stream = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(stream)  # the upload into input
+            with torch.cuda.stream(side), torch.inference_mode():
+                served = self.program(self.input)
+            stream.wait_stream(side)
+            for t in served:
+                t.record_stream(stream)
+            before = [c.launches for c in _LAUNCH_COUNTERS]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"), \
+                    torch.inference_mode():
+                self.outputs = self.program(self.input)
+        # the capture ran nothing: a replay adds what it recorded
+        self.launches = tuple((c, c.launches - n) for c, n in zip(_LAUNCH_COUNTERS, before))
+        for c, n in zip(_LAUNCH_COUNTERS, before):
+            c.launches = n
+        self.graph = graph
+        return served
+
+
 class _BatchedServing:
     """The serving surface that ``Predictor`` and ``ArtifactPredictor``
     share: buckets, upload, ``submit``/``poll``, ``predict``, ``warmup``.
@@ -115,15 +193,40 @@ class _BatchedServing:
 
     While a profiler records (``utils/metrics``), each batch's phases are
     spans: ``serve.submit`` (``serve.prepare``, ``serve.upload``,
-    ``serve.launch``) and ``serve.readback``."""
+    ``serve.launch``) and ``serve.readback``, and each graph replay adds 1
+    to the counter ``serve.graph_replays``."""
 
     _submitted = 0  # batches submitted so far
+    _graphs: Optional[Dict[int, _BucketGraph]] = None  # by bucket; None: eager
 
-    def _upload(self, batch: np.ndarray) -> torch.Tensor:
+    def _graph_for(self, bucket: int) -> Optional[_BucketGraph]:
+        if self._graphs is None:
+            return None
+        graph = self._graphs.get(bucket)
+        if graph is None:
+            graph = self._graphs[bucket] = _BucketGraph(
+                self._detect.program, (bucket, self.size, self.size, 3), self.device,
+                self._graph_pool)
+        return graph
+
+    def _upload(self, batch: np.ndarray, graph: Optional[_BucketGraph]) -> torch.Tensor:
         x = torch.from_numpy(batch)
         if self.device.type == "cuda":
             x = x.pin_memory()  # lets the copy run asynchronously
+        if graph is not None:
+            return graph.input.copy_(x, non_blocking=True)
         return x.to(self.device, non_blocking=True)
+
+    def _copy_out(self, det) -> Tuple[tuple, Optional[torch.cuda.Event]]:
+        """On the card, the results' copies into pinned host memory, enqueued
+        behind the launch, and an event after them."""
+        if self.device.type != "cuda":
+            return tuple(det), None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in det)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
 
     def _bucket_for(self, n: int) -> int:
         """The smallest batch that holds ``n`` images."""
@@ -133,28 +236,32 @@ class _BatchedServing:
         return self.batch_size  # prepare_batch refuses more
 
     def _submit(self, images: Sequence) -> Tuple:
-        """(detections in flight, sizes, the batch's number from 1): the
-        number is the id of the batch's ``serve.submit`` and
-        ``serve.readback`` spans."""
+        """(detections in flight, the event after their copies to the host
+        or None, sizes, the batch's number from 1): the number is the id of
+        the batch's ``serve.submit`` and ``serve.readback`` spans."""
         self._submitted += 1
         with trace.span("serve.submit", batch=self._submitted):
             with trace.span("serve.prepare"):
                 batch, sizes = prepare_batch(images, self.size,
                                              self._bucket_for(len(images)),
                                              self.letterbox, self.decode_backend)
+            graph = self._graph_for(len(batch))
             with trace.span("serve.upload"):
-                x = self._upload(batch)
+                x = self._upload(batch, graph)
             with trace.span("serve.launch"):
-                return self._detect(x), sizes, self._submitted
+                det = self._detect(x) if graph is None else graph.run()
+                return (*self._copy_out(det), sizes, self._submitted)
 
-    def _readback(self, det, sizes, batch: int) -> List[Detection]:
+    def _readback(self, det, done, sizes, batch: int) -> List[Detection]:
         with trace.span("serve.readback", batch=batch):
+            if done is not None:
+                done.synchronize()
             return unpack_detections(det, sizes, self.min_score, self.letterbox)
 
     def warmup(self) -> None:
-        """One batch of each bucket, read back: builds
-        the NMS kernel and runs cuDNN's first calls at every batch shape
-        before a real request arrives."""
+        """One batch of each bucket, read back: builds the NMS kernel, runs
+        cuDNN's first calls at every batch shape and, on the card, captures
+        each bucket's graph before a real request arrives."""
         dummy = np.zeros((8, 8, 3), np.uint8)
         for b in self.bucket_sizes:
             self.submit([dummy] * b)
@@ -191,7 +298,8 @@ class _BatchedServing:
 
 class Predictor(_BatchedServing):
     """detect() as a service: fixed or bucketed batch, padded, launches
-    overlapped with host work. Runs on the card unless ``device="cpu"``."""
+    overlapped with host work. Runs on the card unless ``device="cpu"``,
+    each bucket as a CUDA graph where ``graph_capturable`` allows."""
 
     def __init__(self, cfg: ExperimentConfig, state_dict=None,
                  batch_size: int = 8, min_score: float = 0.0,
@@ -226,9 +334,11 @@ class Predictor(_BatchedServing):
         module, self.anchors = build_model(cfg.model, self.device, generator)
         if state_dict is not None:
             module.load_state_dict(state_dict, strict=True)
-        self._detect, self.module = make_serving_detect(
+        self._detect, self.module = quantize_lib.make_serving_detect(
             module, self.anchors, cfg.model, cfg.data, quantize, self.device,
             activation_scales)
+        if graph_capturable(self._detect.program, self.device):
+            self._graphs, self._graph_pool = {}, torch.cuda.graph_pool_handle()
         self._pending: Deque[Tuple] = collections.deque()  # in flight, FIFO
 
 
