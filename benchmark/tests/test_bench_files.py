@@ -9,23 +9,51 @@ import re
 import shutil
 
 from benchmark import run as bench_run
-from benchmark.tests.tiny import BENCH, ROOT, write_tiny_checkout
+from benchmark.tests.tiny import ROOT, write_tiny_checkout
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# a width may never be cut: the last part of a key in ``reduced`` names none
+WIDTH = re.compile(r"width|channels|hidden|intermediate|latent|expansion|projection|head_size"
+                   r"|state_size|_dim$|_rank$")
+MISSING = object()
 
 
-def bench():
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+def bench(root=ROOT):
+    return json.loads((root / "BENCHMARK.json").read_text())
 
 
 def line_ok(text: str) -> bool:
     return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
 
 
-def test_benchmark_json_keeps_its_rules():
-    b = bench()
+def dotted(tree: dict, key: str):
+    """The value at a dotted path such as ``data.batch_size``, or MISSING."""
+    for part in key.split("."):
+        if not isinstance(tree, dict) or part not in tree:
+            return MISSING
+        tree = tree[part]
+    return tree
+
+
+def check_cuts(cfg: dict, reduced: list) -> None:
+    """Every key cut from the source is a dotted path into the file's
+    ``experiment`` and no width, and the file says what it was published as
+    and what deployment the cut stands for."""
+    assert len(reduced) <= 16 and len(set(reduced)) == len(reduced)
+    if not reduced:
+        return
+    assert set(cfg["published"]) == set(reduced) and line_ok(cfg["deployment"])
+    for key in reduced:
+        assert NAME.match(key) and not WIDTH.search(key.rsplit(".", 1)[-1])
+        value = dotted(cfg["experiment"], key)
+        assert value is not MISSING and value != cfg["published"][key]
+
+
+def check_rules(root=ROOT):
+    """BENCHMARK.json of the checkout at ``root`` against the rules."""
+    b = bench(root)
     assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
                       "per_layer"}
     assert b["paths"] == ["benchmark"] and b["command"] == ["python3", "benchmark/run.py"]
@@ -37,16 +65,18 @@ def test_benchmark_json_keeps_its_rules():
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and line_ok(c["source"]) and line_ok(c["why"])
-        assert c["file"].startswith("benchmark/") and (ROOT / c["file"]).is_file()
-        assert c["reduced"] == []
+        assert c["file"].startswith("benchmark/") and (root / c["file"]).is_file()
+        check_cuts(json.loads((root / c["file"]).read_text()), c["reduced"])
         names.add(c["name"])
     used = set()
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and line_ok(w["why"])
-        assert w["chips"] == 1 and w["config"] in names
+        assert w["chips"] in (1, 4) and w["config"] in names
         used.add(w["config"])
     assert used == names
+    # four-chip cells: at most a quarter of the cells, rounded down, and one always
+    assert sum(w["chips"] == 4 for w in b["workloads"]) <= max(1, len(b["workloads"]) // 4)
     pairs = [(w["config"], w["traffic"]) for w in b["workloads"]]
     assert len(pairs) == len(set(pairs))
     cells = {w["name"] for w in b["workloads"]}
@@ -71,20 +101,29 @@ def test_benchmark_json_keeps_its_rules():
     assert len(json.dumps(b).encode()) <= 64 * 1024
 
 
-def test_every_name_is_a_file():
-    b = bench()
+def check_files(root=ROOT):
+    """Every name in BENCHMARK.json of the checkout at ``root`` is a file."""
+    b, here = bench(root), root / "benchmark"
     for w in b["workloads"]:
-        cell = json.loads((BENCH / "workloads" / f"{w['name']}.json").read_text())
+        cell = json.loads((here / "workloads" / f"{w['name']}.json").read_text())
         assert cell["config"] == w["config"] and cell["traffic"] == w["traffic"]
-        assert (BENCH / "traffic" / f"{w['traffic']}.py").is_file()
-        assert (BENCH / "configs" / f"{w['config']}.json").is_file()
+        assert (here / "traffic" / f"{w['traffic']}.py").is_file()
+        assert (here / "configs" / f"{w['config']}.json").is_file()
         assert set(cell) == {"config", "traffic", "params", "limits"}
     for m in b["per_layer"]:
-        reader = bench_run.load_file_module(BENCH / "metrics" / f"{m['name']}.py", "m")
+        reader = bench_run.load_file_module(here / "metrics" / f"{m['name']}.py", "m")
         assert reader.read({}) is None  # nothing to read, no number
     for c in b["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
+        cfg = json.loads((root / c["file"]).read_text())
         assert {"source", "experiment", "assumed"} <= set(cfg) and cfg["source"] == c["source"]
+
+
+def test_benchmark_json_keeps_its_rules():
+    check_rules()
+
+
+def test_every_name_is_a_file():
+    check_files()
 
 
 NEW_TRAFFIC = '''"""A throwaway traffic kind: the offline detect traffic at another name."""
