@@ -27,16 +27,19 @@ import torch.nn.functional as F
 
 from shape_based_object_detection_torch.config import LossConfig
 from shape_based_object_detection_torch.ops.matching import MatchResult
+from shape_based_object_detection_torch.parallel.mesh import count_bytes
 
 Metrics = Dict[str, torch.Tensor]
 
 
 def global_count(count: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
     """``count`` (a float 0-d tensor) summed over ``group``'s ranks (as it
-    is when there is no group)."""
+    is when there is no group). While tracing, its bytes add to the
+    counter ``comm.all_reduce_bytes``, as ``parallel.mesh.all_reduce_``'s."""
     if group is None:
         return count
     count = count.clone()
+    count_bytes(count)
     dist.all_reduce(count, group=group)
     return count
 

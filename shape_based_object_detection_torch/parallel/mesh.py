@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from shape_based_object_detection_torch.config import MeshConfig, ModelConfig
 from shape_based_object_detection_torch.parallel.spatial import RowShard
+from shape_based_object_detection_torch.utils import metrics as trace
 from shape_based_object_detection_torch.utils.device import resolve_device
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -255,24 +256,36 @@ def all_reduce_(tensors: List[torch.Tensor], mesh: Mesh, data_axis: bool = False
     in place, as one all-reduce of one flat buffer per dtype (a single
     process, or a data axis of one index: nothing to do). Each tensor is
     packed in its own memory order and unpacked by one multi-tensor copy, so
-    the packing costs two copies of the bytes and a few launches."""
+    the packing costs two copies of the bytes and a few launches. While
+    tracing, the pack, the call and the unpack are the span
+    ``comm.all_reduce``, and each flat buffer's bytes add to the counter
+    ``comm.all_reduce_bytes``."""
     pg = mesh.data_axis_group if data_axis else mesh.group
     if pg is None or not tensors:
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        orders = [_memory_order(t) for t in group]
-        flat = torch.cat([t.permute(o).reshape(-1) for t, o in zip(group, orders)])
-        dist.all_reduce(flat, group=pg)
-        parts, offset = [], 0
-        for t, o in zip(group, orders):
-            shape = [t.shape[d] for d in o]
-            back = sorted(range(t.dim()), key=o.__getitem__)
-            parts.append(flat[offset:offset + t.numel()].view(shape).permute(back))
-            offset += t.numel()
-        torch._foreach_copy_(group, parts)
+    with trace.span("comm.all_reduce"):
+        for group in by_dtype.values():
+            orders = [_memory_order(t) for t in group]
+            flat = torch.cat([t.permute(o).reshape(-1) for t, o in zip(group, orders)])
+            count_bytes(flat)
+            dist.all_reduce(flat, group=pg)
+            parts, offset = [], 0
+            for t, o in zip(group, orders):
+                shape = [t.shape[d] for d in o]
+                back = sorted(range(t.dim()), key=o.__getitem__)
+                parts.append(flat[offset:offset + t.numel()].view(shape).permute(back))
+                offset += t.numel()
+            torch._foreach_copy_(group, parts)
+
+
+def count_bytes(t: torch.Tensor) -> None:
+    """While tracing, add the bytes of ``t``, a buffer about to be
+    all-reduced, to the counter ``comm.all_reduce_bytes``."""
+    if trace.tracing():
+        trace.count("comm.all_reduce_bytes", t.numel() * t.element_size())
 
 
 def all_gather_rows(tensors: Iterable[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:

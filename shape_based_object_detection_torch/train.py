@@ -42,13 +42,17 @@ and the gradients, each rank's rows' share, over the world.
 While a ``torch.profiler`` session records, the step's phases are spans
 (``utils/metrics``): ``train.step`` (with the step's number) around
 ``train.augment``, ``train.forward``, ``train.match`` (in ``match_batch``),
-``train.loss``, ``train.backward`` and ``train.update``; at its end the step
-adds the caching allocator's device segments created since the last step
-to ``mem.device_allocs``.
+``train.loss``, ``train.backward`` and ``train.update``, and under a process
+group ``train.allreduce`` inside ``train.update`` around the gradients'
+all-reduce (``parallel/mesh.all_reduce_``: the span ``comm.all_reduce``, its
+bytes on the counter ``comm.all_reduce_bytes``, as the loss's count of
+positives adds its own); at its end the step adds the caching allocator's
+device segments created since the last step to ``mem.device_allocs``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -349,11 +353,12 @@ def _grad_and_update(loss_fn, opt: Optimizer, mask: List[bool],
         # the global batch's gradient, their loss terms to its loss. Under a
         # model axis the ranks of a data index hold the same loss terms: those
         # sum over the data axis alone
-        if mesh.model_parallelism == 1:
-            all_reduce_(grads + summed, mesh)
-        else:
-            all_reduce_(grads, mesh)
-            all_reduce_(summed, mesh, data_axis=True)
+        with trace.span("train.allreduce") if mesh.distributed else contextlib.nullcontext():
+            if mesh.model_parallelism == 1:
+                all_reduce_(grads + summed, mesh)
+            else:
+                all_reduce_(grads, mesh)
+                all_reduce_(summed, mesh, data_axis=True)
         metrics["grad_norm"] = global_norm(grads)
         applied = opt.apply(state.opt_state, [p.data for p in params], grads, mask)
         d = cfg.train.ema_decay

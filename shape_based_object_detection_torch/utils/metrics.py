@@ -21,8 +21,11 @@ process (the benchmark's per-layer metrics read it).
 
 Counters (``count``) add on the host. While tracing on the card, the train
 step adds the caching allocator's new device segments
-(``mem.device_allocs``). The tracer keeps the last ``MAX_SPANS`` spans, so a
-long profiled run holds a bounded number.
+(``mem.device_allocs``); while tracing under a process group,
+``parallel/mesh.all_reduce_`` (the gradients) and the loss's count of
+positives add the bytes they all-reduce (``comm.all_reduce_bytes``). The
+tracer keeps the last ``MAX_SPANS`` spans, so a long profiled run holds a
+bounded number.
 """
 
 from __future__ import annotations
