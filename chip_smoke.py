@@ -246,6 +246,7 @@ without printing a result when there is no CUDA device or a phase fails.
     python3 chip_smoke.py --only spatial     # the model axis
     python3 chip_smoke.py --only tools       # the checkpoint tools, the examples
     python3 chip_smoke.py --only accuracy    # the accuracy tools
+    python3 chip_smoke.py --only k3          # the frozen BatchNorm kernel alone
 """
 
 from __future__ import annotations
@@ -279,7 +280,7 @@ MATCH_OPS_PER_PAIR = 16
 # ratios), 2 abs, 1 add, 1 negate, 1 div by tau, 1 exp, 2 mul, 1 add (blend)
 MATCH_SHAPE_OPS_PER_PAIR = 11
 MATCH_SHAPE_OPS_PER_BOX = 2  # log w, log h of each anchor and valid GT
-KERNELS = ("nms_greedy", "match_anchors")
+KERNELS = ("nms_greedy", "match_anchors", "frozen_bn")
 HOST_LIBRARIES = ("ap_matcher", "jpeg_decoder")  # the eval and data paths' host C++
 
 
@@ -656,8 +657,10 @@ def check_answers(requests, answers):
     return [[len(d.scores) for d in ans] for ans in answers]
 
 
-def phase_serving(torch, config, serving, nms_cuda, detection, reset_counts):
-    """The main path: a bf16 batch-16 Predictor answering three requests."""
+def phase_serving(torch, config, serving, nms_cuda, frozen_bn_cuda, detection, reset_counts):
+    """The main path: a bf16 batch-16 Predictor answering three requests,
+    one K1 launch and 49 K3 launches a batch (the first batch's eager
+    forward, then each replay of the bucket's graph)."""
     cfg = serving_config(config, "bfloat16")
     pred = serving.Predictor(cfg, batch_size=16, device="cuda",
                              generator=torch.Generator().manual_seed(0))
@@ -672,13 +675,17 @@ def phase_serving(torch, config, serving, nms_cuda, detection, reset_counts):
     reset_counts()
     answers = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
-    launches = nms_cuda.launches
+    launches, k3_launches = nms_cuda.launches, frozen_bn_cuda.launches
     if launches != len(requests):
         raise RuntimeError(f"the NMS kernel ran {launches} times for "
                            f"{len(requests)} batches")
+    if k3_launches != R50_K3_LAUNCHES * len(requests):
+        raise RuntimeError(f"the frozen BatchNorm kernel ran {k3_launches} times for "
+                           f"{len(requests)} batches, not {R50_K3_LAUNCHES} a batch")
     counts = check_answers(requests, answers)
     log(f"[serving] bf16 Predictor b16: requests of 16, 5, 1 images answered, "
-        f"detections per image {counts}, NMS kernel launches {launches}")
+        f"detections per image {counts}, NMS kernel launches {launches}, frozen BatchNorm "
+        f"kernel launches {k3_launches}")
 
     # the kernel against the plain version on the same candidates
     batch, _ = serving.prepare_batch(requests[0], 512, 16)
@@ -708,7 +715,7 @@ def phase_serving(torch, config, serving, nms_cuda, detection, reset_counts):
     log(f"[timing] Predictor.predict, 16 images of 200-900 px (host clock): "
         f"{spread(walls)}, {16e3 / np.median(walls):.1f} images/s at the median; "
         f"prepare_batch (host resize) {spread(preps)}")
-    return launches, {"predict_16_images_median_ms": float(np.median(walls)),
+    return launches, k3_launches, {"predict_16_images_median_ms": float(np.median(walls)),
                       "prepare_batch_16_median_ms": float(np.median(preps))}
 
 
@@ -1362,6 +1369,200 @@ def phase_train_bn(torch, config, train, build_model):
 
 
 # ---------------------------------------------------------------------------
+def graph_replay_ms(torch, fn, iters=30):
+    """Device ms of one replay of ``fn`` captured as a CUDA graph (CUDA
+    events around each of ``iters`` replays, median): launches without the
+    host's time between them, as a served batch replays them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = cuda_times_ms(graph.replay, iters)
+    del graph
+    return float(np.median(times))
+
+
+# a ResNet-50 forward's K3 launches: the stem, then each of 16 bottlenecks'
+# bn1, bn2 and end (53 BatchNorms: the 4 downsample ones at their block's end)
+R50_K3_LAUNCHES = 49
+
+
+def abs_err(torch, got, want) -> float:
+    """The largest |got - want| over the elements; 0 where both are equal
+    or both NaN, inf where only one is NaN or they are unequal infinities."""
+    g, w = got.float(), want.float()
+    same = (g == w) | (g.isnan() & w.isnan())
+    d = torch.where(same, torch.zeros_like(g), (g - w).abs())
+    return float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
+
+
+class K3Sites:
+    """``with K3Sites(torch, frozen_bn_cuda) as rec:`` records each K3
+    launch made inside, through the wrapper's two entry points that the ops
+    call: ``rec.sites`` holds (form, the launch's arguments) in launch
+    order, ``rec.equal`` whether K3's output equals the plain composition's
+    on those arguments bit for bit, ``rec.err`` their largest absolute
+    difference."""
+
+    def __init__(self, torch, frozen_bn_cuda):
+        self.torch, self.mod = torch, frozen_bn_cuda
+        self.saved = frozen_bn_cuda.frozen_bn_act_cuda, frozen_bn_cuda.frozen_bn_add_relu_cuda
+        self.sites, self.equal, self.err = [], [], 0.0
+
+    def _record(self, form, kernel, plain, args):
+        from tests.torch_kernel_cases import bits_equal
+
+        out = kernel(*args)
+        want = plain(*args)
+        self.sites.append((form, args))
+        self.equal.append(bits_equal(out, want))
+        self.err = max(self.err, abs_err(self.torch, out, want))
+        return out
+
+    def __enter__(self):
+        from shape_based_object_detection_torch.ops import frozen_bn
+
+        act, add = self.saved
+        self.mod.frozen_bn_act_cuda = lambda *a: self._record(
+            "act" if a[6] else "bn", act, frozen_bn.bn_act, a)
+        self.mod.frozen_bn_add_relu_cuda = lambda *a: self._record(
+            "residual" if len(a) < 8 or a[7] is None else "downsample", add,
+            frozen_bn.bn_add_relu, a)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.frozen_bn_act_cuda, self.mod.frozen_bn_add_relu_cuda = self.saved
+
+
+def serving_k3_sites(torch, config, serving, frozen_bn_cuda, dtype):
+    """The K3 launches of one forward of the serving path: a b16 Predictor's
+    detect program (the one each bucket's graph captures) on a batch of 16
+    requests of 200-900 px, recorded by ``K3Sites``. Returns the recorder
+    and the launches the forward added to ``frozen_bn_cuda.launches``."""
+    pred = serving.Predictor(serving_config(config, dtype), batch_size=16, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    request = [rng.integers(0, 256, (int(rng.integers(200, 900)),
+                                     int(rng.integers(200, 900)), 3), dtype=np.uint8)
+               for _ in range(16)]
+    batch, _ = serving.prepare_batch(request, pred.size, 16)
+    images = torch.from_numpy(batch).cuda()
+    before = frozen_bn_cuda.launches
+    with K3Sites(torch, frozen_bn_cuda) as rec, torch.inference_mode():
+        pred._detect.program(images)
+    torch.cuda.synchronize()
+    return rec, frozen_bn_cuda.launches - before
+
+
+def k3_forward_times(torch, sites):
+    """K3 against the plain composition at each of ``sites`` (form, launch
+    arguments), each on its own tensors: each distinct (form, shape) on the
+    vector route, its device ms per call (20 calls of its first site as one
+    CUDA graph) for both, and the sites' launches in order as one CUDA graph
+    for both. Returns ({(form, shape): (K3 ms, plain ms)}, K3 graph ms,
+    plain graph ms)."""
+    from shape_based_object_detection_torch.ops import frozen_bn, frozen_bn_cuda
+
+    def pair(form, args):
+        if form in ("act", "bn"):
+            return (lambda: frozen_bn_cuda.frozen_bn_act_cuda(*args),
+                    lambda: frozen_bn.bn_act(*args))
+        return (lambda: frozen_bn_cuda.frozen_bn_add_relu_cuda(*args),
+                lambda: frozen_bn.bn_add_relu(*args))
+
+    calls = [pair(form, args) for form, args in sites]
+    per_shape = {}
+    for (form, args), (kernel, plain) in zip(sites, calls):
+        key = form, tuple(args[0].shape)
+        if key in per_shape:
+            continue
+        r = args[6] if form in ("residual", "downsample") else None
+        if frozen_bn_cuda.route(args[0], r) != "vector":
+            raise RuntimeError(f"K3 at {key} {args[0].dtype}: not the vector route")
+        per_shape[key] = tuple(
+            graph_replay_ms(torch, lambda f=f: [f() for _ in range(20)]) / 20
+            for f in (kernel, plain))
+    k_graph = graph_replay_ms(torch, lambda: [k() for k, _ in calls])
+    p_graph = graph_replay_ms(torch, lambda: [p() for _, p in calls])
+    return per_shape, k_graph, p_graph
+
+
+def phase_frozen_bn_kernel(torch, config, serving):
+    """K3 against the plain composition on the card: bit-equal on the edge
+    cases (both routes, odd C, NCHW, mixed layouts, NaN, +-inf, the largest
+    values); then one forward of the serving path's b16 detect program
+    (bf16, and float32), each K3 launch recorded with its own tensors and
+    checked bit for bit against the plain composition on them, 49 launches
+    a forward; each recorded shape's device time beside its bound, bytes /
+    HBM_BYTES_PER_S, and the plain composition's; the forward's launches as
+    one CUDA graph, K3's and the plain composition's. Returns K3's entries
+    of the result, with the bit-equality and the largest difference found."""
+    from shape_based_object_detection_torch.ops import frozen_bn_cuda
+    from tests.torch_kernel_cases import (
+        FROZEN_BN_FORMS, bits_equal, frozen_bn_bytes, frozen_bn_inputs, frozen_bn_pair,
+        resnet_bn_sites,
+    )
+
+    checked, err = 0, 0.0
+    for form in FROZEN_BN_FORMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for layouts, c in ((("nhwc", "nhwc"), 256), (("nhwc", "nhwc"), 19),
+                               (("nchw", "nchw"), 64), (("nhwc", "nchw"), 32)):
+                args = frozen_bn_inputs(form, (3, c, 7, 5), dtype, c, layouts, edge=True)
+                got, want = frozen_bn_pair(form, *args)
+                if not bits_equal(got, want):
+                    raise RuntimeError(f"K3 differs from the plain composition: {form} "
+                                       f"{dtype} {layouts} C={c}")
+                err = max(err, abs_err(torch, got, want))
+                checked += 1
+    log(f"[k3] edge cases: {checked} bit-equal (NaN, +-inf, the largest values, -0, "
+        f"subnormals; zero, huge and negative statistics), largest difference {err}")
+    rows = {"edge_cases_checked": checked, "library_ms": None}
+    equal = []
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "fp32")):
+        rec, launched = serving_k3_sites(torch, config, serving, frozen_bn_cuda, dtype)
+        sites = [(form, tuple(args[0].shape)) for form, args in rec.sites]
+        layouts = {args[0].is_contiguous(memory_format=torch.channels_last)
+                   for _, args in rec.sites}
+        if launched != R50_K3_LAUNCHES or len(sites) != R50_K3_LAUNCHES:
+            raise RuntimeError(f"the {tag} serving forward launched K3 {launched} times "
+                               f"({len(sites)} recorded), not {R50_K3_LAUNCHES}")
+        if sites != resnet_bn_sites(16, 512):
+            raise RuntimeError(f"the {tag} serving forward's K3 sites differ from "
+                               "tests/torch_kernel_cases.resnet_bn_sites")
+        if not all(rec.equal):
+            raise RuntimeError(f"K3 differs from the plain composition at "
+                               f"{rec.equal.count(False)} of the {tag} serving forward's sites")
+        equal += rec.equal
+        err = max(err, rec.err)
+        log(f"[k3] {tag} serving forward (Predictor b16's detect program): {launched} K3 "
+            f"launches, each bit-equal to the plain composition on its own tensors (largest "
+            f"difference {rec.err}); channels-last {sorted(layouts)}")
+        per_shape, k_graph, p_graph = k3_forward_times(torch, rec.sites)
+        dt = rec.sites[0][1][0].dtype
+        bound = {s: frozen_bn_bytes(*s, dt) / HBM_BYTES_PER_S * 1e3 for s in per_shape}
+        for s, (k_ms, p_ms) in per_shape.items():
+            log(f"[k3] {tag} {s[0]} {s[1]} x{sites.count(s)}: device K3 {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {bound[s]:.4f} ms ({bound[s] / k_ms * 100:.1f} % of it)")
+        k_sum = sum(per_shape[s][0] for s in sites)
+        p_sum = sum(per_shape[s][1] for s in sites)
+        b_sum = sum(bound[s] for s in sites)
+        log(f"[k3] {tag} R50-512 b16 forward, {len(sites)} launches: device K3 {k_sum:.4f} ms "
+            f"(shapes summed), {k_graph:.4f} ms as one CUDA graph ({b_sum / k_graph * 100:.1f} % "
+            f"of the bound); plain {p_sum:.4f} ms, {p_graph:.4f} ms as one graph; bound "
+            f"{b_sum:.4f} ms ({nvidia_smi_line()})")
+        rows.update({f"r50_b16_{tag}_forward_launches": launched,
+                     f"r50_b16_{tag}_graph_ms": k_graph, f"r50_b16_{tag}_device_ms": k_sum,
+                     f"r50_b16_{tag}_plain_graph_ms": p_graph,
+                     f"r50_b16_{tag}_plain_device_ms": p_sum,
+                     f"r50_b16_{tag}_bound_ms": b_sum})
+        del rec
+        torch.cuda.empty_cache()
+    rows.update({"bit_equal": all(equal), "max_abs_err": err})
+    return rows
+
+
 # The training application: the frozen-BatchNorm repair, the pipelined
 # step, train_cli and eval_cli on config #3, checkpoints, the Loader
 # ---------------------------------------------------------------------------
@@ -1382,19 +1583,20 @@ def frozen_bn_before_repair(self, x, train=False):
 class FrozenBnVariant:
     """``with FrozenBnVariant(resnet, before=True):`` runs every BatchNorm
     with the branch before the repair; ``before=False`` keeps the repaired
-    one."""
+    one. Either way as layers, the plain composition: K3 does not run."""
 
     def __init__(self, resnet, before: bool):
-        self.cls, self.before = resnet.BatchNorm, before
-        self.saved = resnet.BatchNorm.forward
+        self.resnet, self.before = resnet, before
+        self.saved = resnet.BatchNorm.forward, resnet.fuses
 
     def __enter__(self):
         if self.before:
-            self.cls.forward = frozen_bn_before_repair
+            self.resnet.BatchNorm.forward = frozen_bn_before_repair
+        self.resnet.fuses = lambda *args: False
         return self
 
     def __exit__(self, *exc):
-        self.cls.forward = self.saved
+        self.resnet.BatchNorm.forward, self.resnet.fuses = self.saved
 
 
 def in_turns(variants, fn, rounds=2):
@@ -1428,12 +1630,14 @@ def bn_layer_inputs(torch, resnet, module, run):
     """(BatchNorm, input shape, dtype, memory format) of every BatchNorm
     call in ``run()``."""
     seen = []
+    plain = FrozenBnVariant(resnet, before=False)  # the layers run, and their hooks
     hooks = [m.register_forward_pre_hook(
         lambda m, args: seen.append((m, args[0].shape, args[0].dtype,
                                      args[0].is_contiguous(memory_format=torch.channels_last))))
         for m in module.modules() if isinstance(m, resnet.BatchNorm)]
     try:
-        run()
+        with plain:
+            run()
     finally:
         for h in hooks:
             h.remove()
@@ -5153,8 +5357,8 @@ def phase_accuracy(torch, config, detection, nms, nms_cuda, matching, matching_c
     return out, k1, k2
 
 
-PHASES = ("base", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data", "dist",
-          "spatial", "tools", "accuracy")
+PHASES = ("base", "k3", "bn", "pipelined", "app", "ckpt", "loader", "serve", "int8", "data",
+          "dist", "spatial", "tools", "accuracy")
 
 
 def main() -> int:
@@ -5231,20 +5435,24 @@ def run_phases(torch, want, only, t0, workdir):
     from shape_based_object_detection_torch.data.augment import augment_batch
     from shape_based_object_detection_torch.detection import make_detect_fn
     from shape_based_object_detection_torch.models.factory import build_model
-    from shape_based_object_detection_torch.ops import matching, matching_cuda, nms, nms_cuda
+    from shape_based_object_detection_torch.ops import (
+        frozen_bn_cuda, matching, matching_cuda, nms, nms_cuda,
+    )
     from shape_based_object_detection_torch.ops.anchors import anchors_for_model
 
     def reset_counts():
         """Every kernel's launch count to 0, just before a path is driven."""
         nms_cuda.launches = 0
         matching_cuda.launches = 0
+        frozen_bn_cuda.launches = 0
 
-    results, k1, k2 = {}, {}, {}
+    results, k1, k2, k3 = {}, {}, {}, {}
     if want("base"):
         nms_err, walk_rows = phase_kernel(torch, nms, nms_cuda)
         phase_forward(torch, config, build_model, make_detect_fn)
-        nms_launches, e2e = phase_serving(torch, config, serving, nms_cuda, detection,
-                                          reset_counts)
+        nms_launches, k3_launches, e2e = phase_serving(torch, config, serving, nms_cuda,
+                                                       frozen_bn_cuda, detection, reset_counts)
+        k3["launches"] = k3_launches  # the serving path's
         timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
                               nms, nms_cuda)
         match_err = phase_match_kernel(torch, config, anchors_for_model)
@@ -5325,6 +5533,8 @@ def run_phases(torch, want, only, t0, workdir):
             "ssd_max_abs_err": ssd_match_err,
             **{f"ssd_{k}": v for k, v in ssd_match.items()}})
 
+    if want("k3"):
+        k3.update(phase_frozen_bn_kernel(torch, config, serving))
     # the training application
     if want("bn"):
         results.update(phase_bn_repair(torch, config, train, build_model, make_detect_fn))
@@ -5452,6 +5662,12 @@ def run_phases(torch, want, only, t0, workdir):
         "source": "shape_based_object_detection_torch/csrc/match_anchors.cu",
         "replaces": "shape_based_object_detection_tpu/ops/matching_pallas.py:72",
         **k2,
+    }, {
+        "name": "frozen_bn",
+        "route": "cuda",
+        "source": "shape_based_object_detection_torch/csrc/frozen_bn.cu",
+        "replaces": None,  # flax's frozen BatchNorm, fused by XLA on the TPU
+        **k3,
     }]
     return kernels
 

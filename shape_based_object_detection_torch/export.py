@@ -5,10 +5,12 @@ package's ``export.py``).
 normalize -> backbone/heads -> candidate selection -> class-aware NMS) at
 one batch shape, with the weights, and in an int8 tier the int8 tensors,
 as the program's constants. A serving process runs it with no
-model-building code. The NMS is the op ``sbd::greedy_nms`` and the int8
-product ``sbd::int8_conv2d``, so a loaded program runs the CUDA kernel K1
-(and cuBLASLt's int8 GEMM) on the card, and their plain versions on the
-CPU. An artifact exported on one device is moved to the other at load
+model-building code. The NMS is the op ``sbd::greedy_nms``, the int8
+product ``sbd::int8_conv2d`` and each frozen BatchNorm with what follows it
+``sbd::frozen_bn_act`` or ``sbd::frozen_bn_add_relu``, so a loaded program
+runs the CUDA kernels K1 and K3 (and cuBLASLt's int8 GEMM) on the card, and
+their plain versions on the CPU. An artifact exported on one device is
+moved to the other at load
 (``torch.export.passes.move_to_device_pass``): the counterpart of the
 reference's multi-platform StableHLO.
 
@@ -129,9 +131,10 @@ class LoadedModel:
 def load_detect(blob: bytes, device=None) -> LoadedModel:
     """Deserialize an ``export_detect`` artifact onto ``device`` (default:
     the card), moving it there when it was exported on another device."""
-    # registers sbd::greedy_nms and sbd::int8_conv2d, which the program calls
+    # registers sbd::greedy_nms, sbd::int8_conv2d and sbd::frozen_bn_*, which
+    # the program calls
     from shape_based_object_detection_torch import quantize  # noqa: F401
-    from shape_based_object_detection_torch.ops import nms_cuda  # noqa: F401
+    from shape_based_object_detection_torch.ops import frozen_bn_cuda, nms_cuda  # noqa: F401
 
     if blob[:8] == REFERENCE_MAGIC:
         raise ValueError(

@@ -68,9 +68,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 def head_output_count(cfg: ModelConfig) -> int:
     """Rows of the head output at ``cfg.image_size``, from a forward on the
-    meta device (shapes only, no memory, no arithmetic)."""
+    meta device (shapes only, no memory, no arithmetic, no autograd graph:
+    its frozen BatchNorm ops run their shape functions and count nothing)."""
     cfg = dataclasses.replace(cfg, dtype="float32")  # shapes do not depend on it
-    with torch.device("meta"):
+    with torch.device("meta"), torch.no_grad():
         module = build_module(cfg)
         cls_logits, _ = module(torch.empty(1, 3, cfg.image_size, cfg.image_size))
     return cls_logits.shape[1]

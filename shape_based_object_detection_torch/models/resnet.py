@@ -14,6 +14,13 @@ the rows their windows read from the ranks that own them
 (``parallel/spatial.py``; a stride-1 1x1 and frozen BatchNorm are
 row-local), and trainable BatchNorm sums its statistics over the real
 rows of its group, the world.
+
+Where no autograd graph is recorded (detect, eval, export), a frozen
+BatchNorm and what follows it (the ReLU, or a bottleneck's residual add and
+ReLU) run as one op, ``sbd::frozen_bn_act`` or ``sbd::frozen_bn_add_relu``
+(``ops/frozen_bn_cuda.py``): one kernel on the card, the plain composition
+elsewhere, the same bits either way. Under autograd (training, remat's
+recompute) the plain composition runs as layers.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from shape_based_object_detection_torch.ops import frozen_bn, frozen_bn_cuda
 from shape_based_object_detection_torch.parallel.spatial import (
     RowConv2d, map_height, row_max_pool2d,
 )
+from shape_based_object_detection_torch.utils import metrics as trace
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
@@ -92,15 +101,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
         if not (self.train_bn and train):
-            # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias in
-            # float32 (x - mean promotes a bf16 x without a cast of its own),
-            # rounded to the input's type once
-            mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-            y = ((x - self.running_mean.float().view(shape)) * mul.view(shape)
-                 + self.bias.float().view(shape))
-            return y.to(x.dtype)
+            trace.count("bn.frozen")
+            return frozen_bn.batch_norm(x, *self.stats(), self.eps)
+        shape = (1, -1, 1, 1)
         xf = x.float()
         c = xf.shape[1]
         real = xf
@@ -117,6 +121,36 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
         return y.to(x.dtype)
+
+    def stats(self) -> Tuple[torch.Tensor, ...]:
+        """(running mean, running variance, scale, bias): the frozen
+        branch's vectors."""
+        return self.running_mean, self.running_var, self.weight, self.bias
+
+
+def fuses(train: bool, x: torch.Tensor, *bns: BatchNorm) -> bool:
+    """Whether ``bns`` applied to ``x`` (and what follows them) run as one
+    op: each is frozen in this call, and no autograd graph is recorded
+    (grad mode off, or nothing involved requires grad; ``x`` requires it
+    wherever an earlier input or layer does)."""
+    if any(bn.train_bn and train for bn in bns):
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not (x.requires_grad
+                or any(t.requires_grad for bn in bns for t in bn.stats()))
+
+
+def conv_bn_relu(conv: nn.Module, bn: BatchNorm, x: torch.Tensor,
+                 train: bool) -> torch.Tensor:
+    """``relu(bn(conv(x)))``. The layers free the convolution's output
+    before the ReLU allocates: the training step's peak memory depends on
+    that order."""
+    y = conv(x)
+    if fuses(train, y, bn):
+        return frozen_bn_cuda.frozen_bn_act_op(y, *bn.stats(), bn.eps, True)
+    y = bn(y, train)
+    return F.relu(y)
 
 
 def set_batch_stats_group(module: nn.Module, group) -> None:
@@ -170,11 +204,21 @@ class Bottleneck(nn.Module):
             self.downsample = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y), train))
-        y = self.bn3(self.conv3(y), train)
-        residual = (x if self.downsample is None
-                    else self.downsample_bn(self.downsample(x), train))
+        y = conv_bn_relu(self.conv1, self.bn1, x, train)
+        y = conv_bn_relu(self.conv2, self.bn2, y, train)
+        y = self.conv3(y)
+        if self.downsample is None:
+            if fuses(train, y, self.bn3):
+                return frozen_bn_cuda.frozen_bn_add_relu_op(y, *self.bn3.stats(), self.bn3.eps, x)
+            residual = x
+        elif fuses(train, y, self.bn3, self.downsample_bn):
+            return frozen_bn_cuda.frozen_bn_add_relu_op(
+                y, *self.bn3.stats(), self.bn3.eps, self.downsample(x),
+                *self.downsample_bn.stats(), self.downsample_bn.eps)
+        # the layers in their order: bn3 frees conv3's output first
+        y = self.bn3(y, train)
+        if self.downsample is not None:
+            residual = self.downsample_bn(self.downsample(x), train)
         return F.relu(y + residual)
 
 
@@ -206,7 +250,7 @@ class ResNet(nn.Module):
         self.out_channels = tuple(w * 4 for w in widths[1:])  # C3, C4, C5
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x), train))
+        x = conv_bn_relu(self.conv1, self.bn1, x, train)
         x = row_max_pool2d(x, 3, 2, 1, self.row_shard)
         taps = []
         for names in self.stages:

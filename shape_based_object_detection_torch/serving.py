@@ -18,9 +18,10 @@ graphs hold their device memory in one shared pool. The paths that a graph
 cannot hold stay eager: the CPU, a module split by rows over a model axis
 (its halo exchanges are collectives), Soft-NMS (its loop makes host
 constants per call) and ``ArtifactPredictor``. On every CUDA path each
-batch's results are copied into pinned host memory behind its launch, and
-``poll`` waits for that batch's own event, not for the batches launched
-after it.
+batch is prepared in one of a few pinned host buffers, taken in turn, and
+uploaded from there; its results are copied into pinned host memory behind
+its launch, and ``poll`` waits for that batch's own event, not for the
+batches launched after it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from shape_based_object_detection_torch import quantize as quantize_lib
 from shape_based_object_detection_torch.config import ExperimentConfig
 from shape_based_object_detection_torch.models.factory import build_model
-from shape_based_object_detection_torch.ops import nms_cuda
+from shape_based_object_detection_torch.ops import frozen_bn_cuda, nms_cuda
 from shape_based_object_detection_torch.ops.boxes import boxes_to_original
 from shape_based_object_detection_torch.parallel.spatial import row_shard_of
 from shape_based_object_detection_torch.utils import metrics as trace
@@ -54,19 +55,29 @@ class Detection:
 
 def prepare_batch(images: Sequence, size: int, batch_size: int,
                   letterbox: bool = False,
-                  decode_backend: str = "auto") -> Tuple[np.ndarray, list]:
+                  decode_backend: str = "auto",
+                  out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, list]:
     """Resize (BILINEAR) and zero-pad a request of <= batch_size images to
     the batch shape. Each item is a decoded (H, W, 3) uint8 array, a file
     path or encoded image bytes (decoded and resized on the host by
     ``load_resized_image_host``: JPEGs through the native decoder unless
     ``decode_backend`` is "pil"), or a pre-resized pair ``((size, size, 3)
     uint8, (h, w))``. Returns (batch (B, size, size, 3) uint8, original
-    (h, w) sizes)."""
+    (h, w) sizes). ``out``: a uint8 array of at least ``batch_size`` rows
+    of (size, size, 3) that the batch is written into (its first
+    ``batch_size`` rows, padding zeroed) instead of a new array."""
     from PIL import Image
 
     if len(images) > batch_size:
         raise ValueError(f"{len(images)} images exceed batch_size {batch_size}")
-    batch = np.zeros((batch_size, size, size, 3), np.uint8)
+    if out is None:
+        batch = np.zeros((batch_size, size, size, 3), np.uint8)
+    else:
+        batch = out[:batch_size]
+        if batch.shape != (batch_size, size, size, 3) or batch.dtype != np.uint8:
+            raise ValueError(f"out must hold {batch_size} uint8 rows of ({size}, {size}, 3), "
+                             f"got {out.shape} {out.dtype}")
+        batch[len(images):] = 0
     sizes = []
     for i, img in enumerate(images):
         if isinstance(img, tuple):  # (pre-resized array, (h, w))
@@ -120,9 +131,13 @@ def default_bucket_sizes(batch_size: int) -> list:
     return [b for b in (1, 2, 4, 8, 16, 32, 64) if b < batch_size] + [batch_size]
 
 
+# pinned host buffers a Predictor prepares batches in, in turn: with a batch
+# in flight behind the one read back, the oldest buffer's upload has run
+_STAGING_BUFFERS = 3
+
 # the modules whose ``launches`` count a hand-written kernel or an int8
 # product that detect can launch
-_LAUNCH_COUNTERS = (nms_cuda, quantize_lib)
+_LAUNCH_COUNTERS = (nms_cuda, quantize_lib, frozen_bn_cuda)
 
 
 def graph_capturable(program, device: torch.device) -> bool:
@@ -142,7 +157,9 @@ class _BucketGraph:
     kernels and fills the device constants), then captures ``program`` into
     ``pool``; each later ``run`` replays it. A replay writes ``outputs``,
     the static Detections, and the next replay of any graph of the pool
-    overwrites them: the caller copies them out first, on the same stream."""
+    overwrites them: the caller copies them out first, on the same stream.
+    A replay adds to the kernels' ``launches`` and to the tracer's counters
+    (``bn.frozen``, ``bn.fused``) what its capture recorded."""
 
     def __init__(self, program, shape, device: torch.device, pool):
         self.program, self.pool = program, pool
@@ -150,6 +167,7 @@ class _BucketGraph:
         self.graph = None
         self.outputs = None
         self.launches = ()  # (module, launches a replay adds to its count)
+        self.counts = ()  # (tracer counter, what a replay adds to it)
 
     def run(self) -> Tuple[torch.Tensor, ...]:
         if self.graph is None:
@@ -157,6 +175,8 @@ class _BucketGraph:
         self.graph.replay()
         for counter, n in self.launches:
             counter.launches += n
+        for name, n in self.counts:
+            trace.count(name, n)
         if trace.tracing():
             trace.count("serve.graph_replays")
         return self.outputs
@@ -172,6 +192,7 @@ class _BucketGraph:
             for t in served:
                 t.record_stream(stream)
             before = [c.launches for c in _LAUNCH_COUNTERS]
+            counted = trace.counters()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"), \
                     torch.inference_mode():
@@ -180,6 +201,10 @@ class _BucketGraph:
         self.launches = tuple((c, c.launches - n) for c, n in zip(_LAUNCH_COUNTERS, before))
         for c, n in zip(_LAUNCH_COUNTERS, before):
             c.launches = n
+        self.counts = tuple((k, n - counted.get(k, 0)) for k, n in trace.counters().items()
+                            if n != counted.get(k, 0))
+        for name, n in self.counts:
+            trace.count(name, -n)
         self.graph = graph
         return served
 
@@ -198,6 +223,9 @@ class _BatchedServing:
 
     _submitted = 0  # batches submitted so far
     _graphs: Optional[Dict[int, _BucketGraph]] = None  # by bucket; None: eager
+    # on the card: (pinned host buffer of batch_size images, the event after
+    # the last upload that read it), taken in turn
+    _staging: Optional[Deque[Tuple[torch.Tensor, torch.cuda.Event]]] = None
 
     def _graph_for(self, bucket: int) -> Optional[_BucketGraph]:
         if self._graphs is None:
@@ -209,13 +237,35 @@ class _BatchedServing:
                 self._graph_pool)
         return graph
 
-    def _upload(self, batch: np.ndarray, graph: Optional[_BucketGraph]) -> torch.Tensor:
-        x = torch.from_numpy(batch)
-        if self.device.type == "cuda":
-            x = x.pin_memory()  # lets the copy run asynchronously
+    def _stage(self) -> Optional[Tuple[torch.Tensor, torch.cuda.Event]]:
+        """On the card, the next pinned host buffer of the ring that a batch
+        is prepared in, once the upload that last read it has run, so the
+        upload needs no copy of its own into pinned memory; None elsewhere."""
+        if self.device.type != "cuda":
+            return None
+        if self._staging is None:
+            self._staging = collections.deque(
+                (torch.empty((self.batch_size, self.size, self.size, 3), dtype=torch.uint8,
+                             pin_memory=True), torch.cuda.Event())
+                for _ in range(_STAGING_BUFFERS))
+        slot = self._staging[0]
+        self._staging.rotate(-1)
+        slot[1].synchronize()
+        return slot
+
+    def _upload(self, batch: np.ndarray, graph: Optional[_BucketGraph],
+                slot: Optional[Tuple[torch.Tensor, torch.cuda.Event]] = None) -> torch.Tensor:
+        if slot is not None:  # prepared in the slot's pinned buffer
+            x = slot[0][:len(batch)]
+        else:
+            x = torch.from_numpy(batch)
         if graph is not None:
-            return graph.input.copy_(x, non_blocking=True)
-        return x.to(self.device, non_blocking=True)
+            x = graph.input.copy_(x, non_blocking=True)
+        else:
+            x = x.to(self.device, non_blocking=True)
+        if slot is not None:
+            slot[1].record(torch.cuda.current_stream(self.device))
+        return x
 
     def _copy_out(self, det) -> Tuple[tuple, Optional[torch.cuda.Event]]:
         """On the card, the results' copies into pinned host memory, enqueued
@@ -242,12 +292,14 @@ class _BatchedServing:
         self._submitted += 1
         with trace.span("serve.submit", batch=self._submitted):
             with trace.span("serve.prepare"):
+                slot = self._stage()
                 batch, sizes = prepare_batch(images, self.size,
                                              self._bucket_for(len(images)),
-                                             self.letterbox, self.decode_backend)
+                                             self.letterbox, self.decode_backend,
+                                             out=None if slot is None else slot[0].numpy())
             graph = self._graph_for(len(batch))
             with trace.span("serve.upload"):
-                x = self._upload(batch, graph)
+                x = self._upload(batch, graph, slot)
             with trace.span("serve.launch"):
                 det = self._detect(x) if graph is None else graph.run()
                 return (*self._copy_out(det), sizes, self._submitted)

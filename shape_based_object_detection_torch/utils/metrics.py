@@ -19,7 +19,9 @@ either, so a traced graph holds no profiler op. An operator who profiles
 the trace; ``snapshot()`` returns the spans and the counters to the same
 process (the benchmark's per-layer metrics read it).
 
-Counters (``count``) add on the host. While tracing on the card, the train
+Counters (``count``) add on the host. Each frozen BatchNorm application adds
+1 to ``bn.frozen``, and 1 to ``bn.fused`` where the card's kernel makes it
+(``ops/frozen_bn_cuda.py``). While tracing on the card, the train
 step adds the caching allocator's new device segments
 (``mem.device_allocs``); while tracing under a process group,
 ``parallel/mesh.all_reduce_`` (the gradients) and the loss's count of
@@ -194,6 +196,12 @@ def count_device_allocs(device: torch.device) -> None:
     if last is not None:
         count("mem.device_allocs", n - last)
     _alloc_marks[device] = n
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's value now."""
+    with _lock:
+        return dict(_counters)
 
 
 def snapshot() -> Dict[str, object]:

@@ -12,7 +12,8 @@ import torch
 
 from shape_based_object_detection_torch.ops import nms
 from tests.torch_kernel_cases import (
-    match_check, match_edge_cases, nms_bit_equal, nms_edge_cases, nms_large_cases,
+    FROZEN_BN_FORMS, bits_equal, frozen_bn_inputs, frozen_bn_pair, match_check,
+    match_edge_cases, nms_bit_equal, nms_edge_cases, nms_large_cases, resnet_bn_sites,
     torchvision_vgg16,
 )
 
@@ -864,3 +865,181 @@ def test_examples_on_the_card(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "voc mAP@0.5:" in printed and "output boxes (2, 100, 4)" in printed
     assert nms_cuda.launches > k1
+
+
+# --------------------------------------------------- K3, the frozen BatchNorm
+
+
+def _k3():
+    _cuda()
+    from shape_based_object_detection_torch.ops import frozen_bn_cuda
+
+    return frozen_bn_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,shape", sorted(set(resnet_bn_sites(16, 512))))
+def test_frozen_bn_kernel_bit_equal_at_r50_shapes(form, shape):
+    """Every BatchNorm shape of an R50-512 b16 forward, bf16 channels-last:
+    K3's bits equal the plain composition's on the card, by the vector
+    route, in one launch."""
+    k3 = _k3()
+    x, s, r, d = frozen_bn_inputs(form, shape, torch.bfloat16, sum(shape))
+    assert k3.route(x, r) == "vector"
+    before = k3.launches
+    got, want = frozen_bn_pair(form, x, s, r, d)
+    assert k3.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FROZEN_BN_FORMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layouts,c", [
+    (("nhwc", "nhwc"), 256), (("nhwc", "nhwc"), 8), (("nhwc", "nhwc"), 19),
+    (("nchw", "nchw"), 64), (("nhwc", "nchw"), 32), (("nchw", "nhwc"), 19),
+], ids=["nhwc-256", "nhwc-8", "nhwc-odd-19", "nchw-64", "mixed-32", "mixed-odd-19"])
+def test_frozen_bn_kernel_edge_cases(form, dtype, layouts, c):
+    """Both routes, both types, odd C, NCHW and a residual in the other
+    layout, with NaN, +-inf, the type's largest values, -0 and subnormals in
+    the activations and zero, huge and negative statistics: bits equal."""
+    k3 = _k3()
+    x, s, r, d = frozen_bn_inputs(form, (3, c, 7, 5), dtype, c, layouts, edge=True)
+    got, want = frozen_bn_pair(form, x, s, r, d)
+    assert bits_equal(got, want)
+    assert bool(torch.isnan(want).any())
+    vector = (layouts[0] == "nhwc" and (r is None or layouts[1] == "nhwc")
+              and c % (8 if dtype == torch.bfloat16 else 4) == 0)
+    assert k3.route(x, r) == ("vector" if vector else "scalar")
+
+
+@pytest.mark.cuda
+def test_frozen_bn_kernel_refuses_what_it_does_not_take():
+    """CPU tensors, other types and strided views raise: nothing falls back."""
+    k3 = _k3()
+    x, s, _, _ = frozen_bn_inputs("act", (2, 16, 4, 4), torch.float32, 0)
+    for bad in (x.cpu(), x.half(), x[:, :, :, :2]):
+        with pytest.raises(ValueError):
+            k3.frozen_bn_act_cuda(bad, *s, 1e-5, True)
+    with pytest.raises(ValueError):
+        k3.frozen_bn_add_relu_cuda(x, *s, 1e-5, x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["act", "downsample"])
+def test_frozen_bn_kernel_bit_equal_in_a_cuda_graph(form):
+    """A captured launch, replayed on new inputs written into its static
+    inputs: bits equal the plain composition's on those inputs."""
+    k3 = _k3()
+    shape = (16, 512, 32, 32)
+    x, s, r, d = frozen_bn_inputs(form, shape, torch.bfloat16, 5)
+
+    def launch():
+        if r is None:
+            return k3.frozen_bn_act_cuda(x, *s, 1e-5, True)
+        return k3.frozen_bn_add_relu_cuda(x, *s, 1e-5, r, *d, 1e-5)
+
+    launch()  # builds the kernel outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch()
+    for seed in (6, 7):
+        x2, _, r2, _ = frozen_bn_inputs(form, shape, torch.bfloat16, seed)
+        x.copy_(x2)
+        if r is not None:
+            r.copy_(r2)
+        graph.replay()
+        _, want = frozen_bn_pair(form, x, s, r, d)
+        assert bits_equal(out, want)
+
+
+def _r50_bf16_detect():
+    """An R50-FPN-512 bf16 model on the card with its BatchNorm statistics
+    away from identity, its detect, and 16 images."""
+    import dataclasses
+
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.detection import make_detect_fn
+    from shape_based_object_detection_torch.models import resnet
+    from shape_based_object_detection_torch.models.factory import build_model
+
+    cfg = config.get_config("retinanet_r50_fpn").model
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", detect=dataclasses.replace(
+        cfg.detect, score_threshold=0.0))
+    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, resnet.BatchNorm):
+                c = m.weight.shape[0]
+                for t, v in zip(m.stats(), (torch.randn(c, generator=gen) * 0.1,
+                                            torch.rand(c, generator=gen) + 0.5,
+                                            torch.rand(c, generator=gen) + 0.5,
+                                            torch.randn(c, generator=gen) * 0.1)):
+                    t.copy_(v)
+    images = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
+    return module, make_detect_fn(module, anchors, cfg, device="cuda"), images
+
+
+@pytest.mark.cuda
+def test_r50_detect_b16_bit_equal_to_the_plain_batchnorm(monkeypatch):
+    """The whole R50-FPN-512 bf16 detect at b16: the heads' outputs and the
+    detections through K3 equal those of the plain BatchNorm composition on
+    the card, bit for bit; K3 launches 49 times a forward, for 53
+    BatchNorms."""
+    k3 = _k3()
+    from shape_based_object_detection_torch.models import resnet
+    from shape_based_object_detection_torch.utils import metrics
+
+    module, detect, images = _r50_bf16_detect()
+    x = (images.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    metrics.reset()
+    before = k3.launches
+    with torch.inference_mode():
+        fused = module(x)
+    assert k3.launches == before + 49
+    counts = metrics.counters()
+    assert counts["bn.frozen"] == counts["bn.fused"] == 53
+    fused_det = detect(images)
+    monkeypatch.setattr(resnet, "fuses", lambda *a: False)
+    before = k3.launches
+    with torch.inference_mode():
+        plain = module(x)
+    plain_det = detect(images)
+    assert k3.launches == before
+    for got, want in zip((*fused, *fused_det), (*plain, *plain_det)):
+        assert bits_equal(got, want) if got.is_floating_point() else torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_each_graph_replay_adds_k3_launches_and_counts():
+    """A b16 R50 Predictor's replays: K3's launches grow by 49 per replay,
+    the tracer's ``bn.fused`` and ``bn.frozen`` by 53."""
+    k3 = _k3()
+    import dataclasses
+
+    from shape_based_object_detection_torch import config
+    from shape_based_object_detection_torch.serving import Predictor
+    from shape_based_object_detection_torch.utils import metrics
+
+    cfg = config.get_config("retinanet_r50_fpn")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+    pred = Predictor(cfg, batch_size=16, bucket_sizes=(16,), device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    pred.warmup()  # captures the bucket's graph
+    assert dict(pred._graphs[16].counts) == {"bn.frozen": 53, "bn.fused": 53}
+    size = pred.size
+    items = [(np.random.default_rng(i).integers(0, 256, (size, size, 3), dtype=np.uint8),
+              (400, 500)) for i in range(16)]
+    for _ in range(3):
+        launches, counts = k3.launches, metrics.counters()
+        pred.submit(items)
+        pred.poll()
+        now = metrics.counters()
+        assert k3.launches == launches + 49
+        assert now["bn.fused"] - counts["bn.fused"] == 53
+        assert now["bn.frozen"] - counts["bn.frozen"] == 53

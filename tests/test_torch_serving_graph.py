@@ -18,10 +18,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from shape_based_object_detection_torch import config, quantize
+from shape_based_object_detection_torch import config, quantize, serving
 from shape_based_object_detection_torch.detection import DetectProgram, make_detect_fn
 from shape_based_object_detection_torch.models.factory import build_model
-from shape_based_object_detection_torch.ops import nms_cuda
+from shape_based_object_detection_torch.ops import frozen_bn_cuda, nms_cuda
 from shape_based_object_detection_torch.parallel.spatial import set_row_shard
 from shape_based_object_detection_torch.serving import (
     Predictor, graph_capturable, prepare_batch, unpack_detections,
@@ -77,6 +77,24 @@ def test_cpu_predictor_stays_eager_with_batches_in_flight():
         _assert_same(g, pred.predict(b))
     assert REPLAYS not in metrics.snapshot()["counters"]
     assert pred._graphs is None
+
+
+@pytest.mark.parametrize("count", [1, 3, 4])
+def test_prepare_batch_into_a_reused_buffer_equals_a_fresh_batch(count):
+    """A batch written into a buffer that held another batch (the card's
+    pinned staging buffers) equals a fresh one, its padding rows zeroed; a
+    buffer of the wrong shape or type is refused."""
+    size = 32
+    items = _items(count, count, size)
+    want, want_sizes = prepare_batch(items, size, 4)
+    buf = np.full((6, size, size, 3), 77, np.uint8)
+    got, sizes = prepare_batch(items, size, 4, out=buf)
+    assert np.shares_memory(got, buf) and got.shape == (4, size, size, 3)
+    np.testing.assert_array_equal(got, want)
+    assert sizes == want_sizes
+    for bad in (buf[:3], buf.astype(np.int16), buf[:, :16]):
+        with pytest.raises(ValueError, match="out must hold"):
+            prepare_batch(items[:3], size, 4, out=bad)
 
 
 def _soft(program):
@@ -191,12 +209,27 @@ def test_three_batches_in_flight_come_back_in_order(r50):
 
 
 @pytest.mark.cuda
+def test_more_batches_in_flight_than_staging_buffers(r50):
+    """Five batches of 16, 1, 4, 16 and 3 images submitted before the first
+    poll take the pinned staging buffers round more than once: each answer
+    equals eager detect of its own images."""
+    counts = (16, 1, 4, 16, 3)
+    assert len(counts) > serving._STAGING_BUFFERS
+    batches = [_items(50 + i, n, r50.size) for i, n in enumerate(counts)]
+    for b in batches:
+        r50.submit(b)
+    got = [r50.poll() for _ in batches]
+    for g, b in zip(got, batches):
+        _assert_same(g, _eager(r50, b)[1])
+
+
+@pytest.mark.cuda
 def test_each_replay_counts_its_kernels_and_itself(r50):
     """K1's count grows by the captured count (one) on every replay, the
-    int8 products' by none, and ``serve.graph_replays`` by one per batch
-    while a profiler records."""
+    int8 products' by none, K3's by its 49 launches of an R50 forward, and
+    ``serve.graph_replays`` by one per batch while a profiler records."""
     graph = r50._graphs[16]
-    assert dict(graph.launches) == {nms_cuda: 1, quantize: 0}
+    assert dict(graph.launches) == {nms_cuda: 1, quantize: 0, frozen_bn_cuda: 49}
     items = _items(40, 16, r50.size)
     with profile(activities=[ProfilerActivity.CPU]):
         for i in range(3):

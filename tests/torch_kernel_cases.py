@@ -4,8 +4,9 @@
 torchvision VGG-16 checkpoint that the checks of ``tools/convert_checkpoint``
 convert.
 
-The inputs are numpy arrays made from a seed; the checks hold one kernel
-launch against its plain PyTorch version on the same card tensors. Nothing
+The inputs are numpy arrays made from a seed (K3's, tensors made on the
+card from a seed); the checks hold one kernel launch against its plain
+PyTorch version on the same card tensors. Nothing
 here imports JAX: ``chip_smoke.py`` imports this module on the card."""
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from shape_based_object_detection_torch import config
-from shape_based_object_detection_torch.ops import matching, matching_cuda, nms, nms_cuda
+from shape_based_object_detection_torch.ops import (
+    frozen_bn, frozen_bn_cuda, matching, matching_cuda, nms, nms_cuda,
+)
 
 
 def nms_inputs(rng, b, n, classes=80):
@@ -279,3 +282,101 @@ def same_detections(got, want) -> bool:
                 return False
             free.remove(hit)
     return True
+
+
+# K3, the frozen BatchNorm kernel: "act" is relu(bn(x)) (the stem, each
+# bottleneck's bn1 and bn2), "bn" bn(x) alone, "residual" and "downsample"
+# a bottleneck's end with the block's input or the downsample branch's
+# BatchNorm of it
+FROZEN_BN_FORMS = ("act", "bn", "residual", "downsample")
+
+
+def resnet_bn_sites(b: int = 16, size: int = 512, variant: str = "resnet50"):
+    """(form, (N, C, H, W)) of each K3 launch of a ResNet forward at batch
+    ``b`` and ``size`` px, in order: 49 launches for ResNet-50's 53
+    BatchNorms."""
+    from shape_based_object_detection_torch.models.resnet import STAGE_BLOCKS
+
+    sites = [("act", (b, 64, size // 2, size // 2))]
+    hw = size // 4  # after the stem's stride-2 convolution and max-pool
+    for stage, blocks in enumerate(STAGE_BLOCKS[variant]):
+        ch = 64 * 2 ** stage
+        for blk in range(blocks):
+            sites.append(("act", (b, ch, hw, hw)))
+            if blk == 0 and stage > 0:
+                hw //= 2  # the stride of the stage's first 3x3
+            sites.append(("act", (b, ch, hw, hw)))
+            sites.append(("downsample" if blk == 0 else "residual", (b, 4 * ch, hw, hw)))
+    return sites
+
+
+def frozen_bn_bytes(form: str, shape, dtype) -> int:
+    """Bytes one K3 launch must move: the activations it reads (the input,
+    and the residual or downsample input) and writes, and the float32
+    statistics."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    tensors = 3 if form in ("residual", "downsample") else 2
+    stats = (8 if form == "downsample" else 4) * shape[1] * 4
+    return tensors * n * size + stats
+
+
+def _layout(t, layout):
+    return (t.contiguous(memory_format=torch.channels_last) if layout == "nhwc"
+            else t.contiguous())
+
+
+def frozen_bn_inputs(form, shape, dtype, seed, layouts=("nhwc", "nhwc"), edge=False,
+                     device="cuda"):
+    """(x, statistics, residual or None, downsample statistics or None) for
+    one launch, made on ``device`` from ``seed``: activations of spread
+    ``4``, statistics away from identity (some variances 0 and some huge,
+    some scales 0 or negative). ``edge`` writes NaN, +-inf, the type's
+    largest values, -0 and float32 subnormals into both activations."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+
+    def act(layout):
+        x = torch.randn(shape, generator=gen, device=device) * 4.0
+        if edge:  # every 97th element, in turn
+            big = torch.finfo(dtype).max
+            special = torch.tensor([float("nan"), float("inf"), -float("inf"), big, -big,
+                                    -0.0, 1e-40, -1e-40, 1e30, -1e30], device=device)
+            at = torch.arange(0, x.numel(), 97, device=device)
+            x.view(-1)[at] = special[torch.arange(len(at), device=device) % len(special)]
+        return _layout(x.to(dtype), layout)
+
+    def stats():
+        mean = torch.randn(c, generator=gen, device=device) * 0.5
+        var = torch.rand(c, generator=gen, device=device) * 2.0
+        weight = torch.rand(c, generator=gen, device=device) * 3.0 - 1.5
+        bias = torch.randn(c, generator=gen, device=device) * 0.3
+        var[::7] = 0.0
+        var[3::11] = 1e30
+        weight[5::13] = 0.0
+        return mean, var, weight, bias
+
+    x, s = act(layouts[0]), stats()
+    if form in ("act", "bn"):
+        return x, s, None, None
+    r = act(layouts[1])
+    return x, s, r, (stats() if form == "downsample" else None)
+
+
+def frozen_bn_pair(form, x, s, r=None, d=None, eps=1e-5):
+    """(K3's output, the plain composition's) on the same card tensors."""
+    if form in ("act", "bn"):
+        relu = form == "act"
+        return (frozen_bn_cuda.frozen_bn_act_cuda(x, *s, eps, relu),
+                frozen_bn.bn_act(x, *s, eps, relu))
+    d = (None,) * 4 if d is None else d
+    return (frozen_bn_cuda.frozen_bn_add_relu_cuda(x, *s, eps, r, *d, eps),
+            frozen_bn.bn_add_relu(x, *s, eps, r, *d, eps))
+
+
+def bits_equal(got, want) -> bool:
+    """Same type, shape and bits in every element (NaN payloads too)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    return torch.equal(got.view(bits), want.view(bits))
