@@ -1,46 +1,44 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper).
+"""On-card check of the PyTorch port on one NVIDIA GPU (Hopper).
 
-Drives the port's paths at full width with random weights from a seed: the
-RetinaNet serving path (R50-FPN at 512 px through ``serving.Predictor``) and
+Drives the port's paths at full width with random weights from a seed and
+holds each against the CPU or the kernels' plain versions: the RetinaNet
+serving path (R50-FPN at 512 px through ``serving.Predictor``) and
 training path (the same model's ``train.make_train_step`` in bf16 at batch
 16 with augmentation), then the SSD serving path (SSD300, config #1) and
 training path (SSD-512, config #3, shape matching), remat and trainable
-BatchNorm, and checks them all:
+BatchNorm. Every check raises on a mismatch. Beside the checks it times
+the hand-written kernels alone (K1, K2 and K3, and the int8 product's
+stages) on the paths' own inputs, beside their bounds and their plain
+versions; the port's end-to-end numbers are the benchmark's
+(``benchmark/run.py``), and none is taken here. The groups:
 
   1. device and build: the card, its power limit, the CUDA kernels built
      from ``shape_based_object_detection_torch/csrc`` (one nvcc per source,
-     all started together; timed);
+     all started together);
   2. kernel vs plain: the greedy-NMS kernel (K1) against
      ``ops.nms.greedy_nms`` on the card at (B, N, M) = (16, 1000, 100),
      (16, 400, 200) and (8, 2000, 100), with class-offset boxes, padding
-     rows and tied scores, and on the edge cases of ``nms_edge_cases`` in
-     ``tests/torch_kernel_cases.py`` (a pick with IoU(p, p) < t filling the remaining slots, t > 1, -0/+0
-     ties, no live candidate, N < M); idx, valid and the score bits must be
-     equal, one launch each; then the walk route above 4096 candidates per
-     image at (1, 4097, 100), (4, 8192, 100) and (1, 20000, 100) and on the
-     edge cases of ``nms_large_cases`` (the same traps above 4096, sorted
-     input with keys in shared and in global memory, more than 4096 picks),
-     each with its route, scratch bytes and measured peak allocation, and
-     the walk shapes timed;
+     rows and tied scores, and on the walk route above 4096 candidates per
+     image at (1, 4097, 100), (4, 8192, 100) and (1, 20000, 100); idx,
+     valid and the score bits must be equal, one launch each; each shape
+     with its route, scratch bytes and measured peak allocation, and the
+     walk shapes timed (the edge cases of ``tests/torch_kernel_cases.py``
+     are the card tests');
   3. forward on the card vs the CPU, float32 with TF32 off, one image, the
      same weights; then detect end to end on both, matched detection by
      detection;
   4. the serving path: a bf16 Predictor at batch 16 answers requests of
      16, 5 and 1 images of differing sizes; K1 must have launched once per
-     batch, and run_nms through the kernel must equal the plain version on
-     the same candidates; then a 16-image request end to end on the host
-     clock, and the host resize alone;
-  5. serving timing with CUDA events after warm-up (median and p90): detect
-     images/s at batch 16 in bf16 and float32, a stage breakdown, and K1's
-     time on the path's candidates (CUDA events between back-to-back wrapper
-     calls, and the device time of its kernels under torch.profiler) beside
-     its bound and the plain version's time;
+     batch and K3 49 times a batch, and run_nms through the kernel must
+     equal the plain version on the same candidates;
+  5. K1's time on the serving path's candidates at batch 16 (CUDA events
+     between back-to-back wrapper calls, and the device time of its kernels
+     under torch.profiler) beside its bound and the plain version's time,
+     and its device time on random scores of that shape;
   6. the matching kernel (K2) against ``ops.matching.match_reductions_plain``
      at (B, A, G) = (16, 49104, 64) (every GT the same box, 8 of 64 valid:
      all ties), (16, 49104, 100) (random boxes, invalid rows, an image with
-     no valid GT, duplicate GTs) and (4, 76725, 100) with shape_weight 0.3,
-     and on the edge cases of ``match_edge_cases`` (G = 1, 0 to 100 valid
-     rows of 100, every row valid, shape_weight 0.3 and 1.5, all ties);
+     no valid GT, duplicate GTs) and (4, 76725, 100) with shape_weight 0.3;
      assignments bit-equal, the full MatchResult after the epilogue equal;
   7. a train step on the card vs the CPU: full-width R50-FPN-512, float32
      with TF32 off in forward and backward, augment off, batch 2, the same
@@ -52,104 +50,105 @@ BatchNorm, and checks them all:
      augmentation on) takes a few steps on a numpy-seeded batch of 1-64
      boxes per image; K2 must launch once per step, the loss stay finite,
      the parameters move from step 2 and stay float32 with their momentum;
-  9. training timing with CUDA events: train images/s at b16 bf16, a stage
-     breakdown (augment, forward+loss+backward, match_batch, optimizer
-     update; forward and forward+loss alone beside them), and K2's time
-     (CUDA events and profiler device time, as for K1) beside its bound and
-     the plain version's time;
- 10. a torch.profiler trace of three train steps: the device's busy time
-     per step, hence its idle share, the device time by operator, and the
-     host's time to enqueue a step;
- 11. K2 on config #3's path: an augmented batch of 32 at (B, A, G) = (32,
+  9. K2's time (CUDA events and profiler device time, as for K1) on that
+     trainer's batch augmented as its step augments it and on
+     bench_train.py's batch, beside its bound and the plain version's time;
+ 10. K2 on config #3's path: an augmented batch of 32 at (B, A, G) = (32,
      24564, 100), shape_weight 0.3, VOC labels, 1-100 valid boxes per
      image; assignments and best_q bit-equal, the MatchResult under config
      #3's thresholds equal after the epilogue;
- 12. the SSD300 forward (COCO, full width) on the card vs the CPU, float32
+ 11. the SSD300 forward (COCO, full width) on the card vs the CPU, float32
      with TF32 off, then detect on both, matched detection by detection;
- 13. the SSD300 serving path: config #1's Predictor (batch 1) answers
+ 12. the SSD300 serving path: config #1's Predictor (batch 1) answers
      requests of 1 and 3 images, a bf16 batch-16 Predictor one of 16; K1
-     once per batch; K1 against the plain version on the candidates of a
-     bf16 b16 detect (bit-equal, one launch), with their count;
- 14. SSD300 detect timing at b1 and b16 in float32 and bf16 with a stage
-     breakdown, and K1's time at (16, 400, 200) on those candidates;
- 15. two float32 SSD-512 train steps of config #3 card vs CPU (TF32 off,
-     augment off, batch 2), with phase 7's tolerances;
- 16. the SSD-512 trainer as config #3 sets it (float32, b32, augmentation,
+     once per batch; K1 against the plain version on the candidates of the
+     bf16 b16 detect (bit-equal, one launch), with their count, and K1's
+     time at (16, 400, 200) on them;
+ 13. two float32 SSD-512 train steps of config #3 card vs CPU (TF32 off,
+     augment off, batch 2), with group 7's tolerances;
+ 14. the SSD-512 trainer as config #3 sets it (float32, b32, augmentation,
      100 boxes, multibox with 3:1 mining, shape_weight 0.3): K2 once per
-     step, parameters still at step 1 and moved at step 2; its timing,
-     stage breakdown, K2's time and bound there, and its profile;
- 17. remat: the SSD-512 b32 step with model.remat on and off, same weights
+     step, parameters still at step 1 and moved at step 2; K2's time and
+     bound on its augmented batch;
+ 15. remat: the SSD-512 b32 step with model.remat on and off, same weights
      and batch: loss and grad_norm within 1e-5, and both peaks of
      torch.cuda.max_memory_allocated;
- 18. trainable BatchNorm: two float32 R50-FPN-512 steps with train_bn at b2
-     card vs CPU (phase 7's tolerances; the update's held to the CPU's own
+ 16. trainable BatchNorm: two float32 R50-FPN-512 steps with train_bn at b2
+     card vs CPU (group 7's tolerances; the update's held to the CPU's own
      float32 spread; running statistics within 1e-5 + 1e-5*|cpu|),
      and a bf16 b16 step with train_bn and remat whose running statistics
      equal the same step's without remat (updated once).
 
-The groups after ``base`` drive the training application (``bn``,
-``pipelined``, ``app``, ``ckpt``, ``loader``), the float serving tier
-(``serve``) and the int8 tiers with the exported artifact (``int8``):
+The group ``k3`` holds the frozen BatchNorm kernel (K3) bit for bit
+against the plain composition on its edge cases and at each of the 49
+launches of a b16 Predictor's detect forward (bf16 and float32), and times
+those launches per shape and as one CUDA graph beside their bound. The
+groups after it drive the training application (``bn``, ``pipelined``,
+``app``, ``ckpt``, ``loader``), the float serving tier (``serve``) and the
+int8 tiers with the exported artifact (``int8``):
 
+ 17. the R50-512 backbone's bf16 forward with its frozen BatchNorm as the
+     plain layers, card vs CPU against the CPU's float32 one; the pipelined
+     step against the plain step (R50 bf16 b16, SSD-512 b32): losses
+     within 1e-6, K2 once per step;
+ 18. train_cli on config #3 (K1 and K2 counts), a SIGTERM'd subprocess and
+     its resume, eval_cli (VOC and COCO) with its Evaluator's records equal
+     to make_eval_step's, the C++ and numpy matchers, eval_cli on config #2,
+     K1 and K2 on the CLI's batches bit-equal and timed; checkpoint round
+     trips bit-equal; Loader.device_batches bit-equal and pinned;
  19. hflip TTA detect on R50-FPN-512 card vs CPU (float32, TF32 off, b1,
      matched detection by detection); K1 bit-equal to its plain version on
      the hflip merge at (16, 2000, 100), whose candidates arrive unsorted,
      on the 2-scale (512, 640) merge at (16, 200, 100) and on SSD300's hflip
      merge at (1, 800, 200); K1 once per TTA batch and S + 1 times per
      multi-scale batch; the reference's "matrix" backend name runs K1 once;
-     soft-NMS (sigma 0.5) card vs CPU within 1e-6; K1 and soft-NMS times on
-     (16, 1000, 100) and on the merge;
+     soft-NMS (sigma 0.5) card vs CPU within 1e-6; K1's time on the merges;
      R50-FPN-512 hflip TTA at b16 bf16 with pre_nms_top_k 2100 and 5000
      (merges of 4200 and 10000 candidates per image, K1's walk route): K1
-     bit-equal on each merge and once per TTA batch, its time, scratch,
-     peak allocation and the detect's time; the (16, 1000, 100) serving row timed again;
- 20. detect b16 bf16 with and without hflip TTA, and the 2-scale batch
-     detector, by CUDA events;
- 21. the HTTP server over a bf16 b16 Predictor with buckets 1-16, warmed
+     bit-equal on each merge and once per TTA batch, its time, scratch and
+     peak allocation; the (16, 1000, 100) serving row timed again;
+ 20. the HTTP server over a bf16 b16 Predictor with buckets 1-16, warmed
      up: 512 PNG/JPEG requests of 200-900 px from 16 client threads in a
      process of their own, every answer equal to Predictor.predict of the
-     same batch (0.01 px, 1e-5), K1 once per batch, requests/s, p50/p90/p99
-     latency, batch occupancy, the server process's CPU and the share of
-     the wall with a batch on the card; a lone request on the b1 bucket;
- 22. detect_cli on SSD300 with --tta-hflip --tta-scales 300 --save-viz (K1
+     same batch (0.01 px, 1e-5), every request in one batch, K1 once per
+     batch; a lone request on the b1 bucket;
+ 21. detect_cli on SSD300 with --tta-hflip --tta-scales 300 --save-viz (K1
      twice), and serve_cli as a subprocess: /healthz, /detect, SIGTERM;
- 23. each int8 tier's full-width forward card vs CPU (R50-FPN-512 and
+ 22. each int8 tier's full-width forward card vs CPU (R50-FPN-512 and
      SSD300, b1, float32 with TF32 off): weight-only within 0.02 / 0.002;
      in the full tiers every int8 convolution of the card's forward
      bit-equal to the CPU's on the card's input, and the whole forward
      within 3x the CPU's own spread under 1e-7 noise at each int8
      convolution's input;
- 24. R50-FPN-512 bf16 Predictors (buckets 1 and 16) in the float, weights,
+ 23. R50-FPN-512 bf16 Predictors (buckets 1 and 16) in the float, weights,
      full-dynamic and full-static tiers (static scales calibrated on 4
      synthetic b16 batches) and SSD300 config #1 Predictors: K1 once per
      batch in every tier; every int8 product of R50 b16 and b1 and of
      SSD300 b1 (the dilated conv6) bit-equal to its plain version on the
-     card; detect images/s and device ms per call, weight bytes, and the
-     full tiers' stage times (quantize, im2col, _int_mm, epilogue) against
-     cuDNN's bf16 convolutions of the same shapes; the 2-scale int8
-     detector (K1 3 times);
- 25. the bf16 b16 float and full-static R50 programs exported on the card
+     card; weight bytes, and the full tiers' product stage times (quantize,
+     im2col, _int_mm, epilogue) against cuDNN's bf16 convolutions of the
+     same shapes; the 2-scale int8 detector (K1 3 times);
+ 24. the bf16 b16 float and full-static R50 programs exported on the card
      and a tiny SSD on the CPU; a fresh process loads each with the port
      alone: detections equal to the live Predictor's, one K1 launch per
      call, the CPU artifact run on the card; meanwhile serve_cli serves the
      static tier (--quantize full --act-scales) and an artifact (--artifact)
-     as subprocesses; last, ArtifactPredictor.predict against
-     Predictor.predict.
+     as subprocesses; last, ArtifactPredictor.predict on each artifact, one
+     K1 launch each.
 
 The groups ``data`` and ``dist`` drive the input pipelines and data
 parallelism:
 
- 26. config #3's input (SSD-512, b32, 512 px, max_boxes 100): build_cache
-     of the 256-image synthetic split (seconds, bytes), CacheLoader's ms per
-     batch, the cache staged on the card (bytes, the on-card gather's device
-     ms beside its bound, every batch bit-equal to CacheLoader's), the
-     thread Loader and GrainLoader at 0, 4 and 8 worker processes on that
-     split and on a VOC folder of 256 JPEGs of 500 x 375 written from a
-     seed (the decode-bound case), and train_cli on config #3 under
-     --loader threads, cache and device (synthetic) and threads and grain
-     (JPEGs): ms per step, the card's idle share, K2 once per step; no
-     loader worker process may outlive its GrainLoader's close();
- 27. an NCCL group of one rank formed from torchrun's environment: the
+ 25. config #3's input (SSD-512, b32, 512 px, max_boxes 100): build_cache
+     of the 256-image synthetic split (bytes), the cache staged on the card
+     (bytes there, every batch bit-equal to CacheLoader's), the thread
+     Loader and GrainLoader at 0, 4 and 8 worker processes on that split
+     and on a VOC folder of 256 JPEGs of 500 x 375 written from a seed (the
+     decode-bound case) across an epoch's end, and train_cli on config #3
+     under --loader threads, cache and device (synthetic) and threads and
+     grain (JPEGs): K2 once per step; no loader worker process may outlive
+     its GrainLoader's close();
+ 26. an NCCL group of one rank formed from torchrun's environment: the
      data-parallel step bit-equal to the plain step (R50-FPN-512 b16 bf16;
      SSD-512 b32 with train_bn and remat; cuDNN deterministic) with K2 once
      per step, K2 bit-equal on the rank's augmented rows, the sharded eval
@@ -163,20 +162,20 @@ The group ``spatial`` drives the model axis (image rows split across the
 ranks of a model group in GSPMD's ceil layout, a row fetch in every
 convolution, pool and upsample):
 
- 28. config #5's model as the preset sets it (R101-FPN at 1024 px, focal,
+ 27. config #5's model as the preset sets it (R101-FPN at 1024 px, focal,
      the whole-forward train.remat), float32 with TF32 off and cuDNN
      deterministic, b2: two train steps and a detect (threshold 0) in this
      process, then on 1 data x 2 model gloo ranks sharing the card (NCCL,
      one rank per card, too where the machine has two cards): loss within
      1e-5 relative, grad_norm 1e-4, parameters 2e-5, detections at the
-     reference's bounds; each rank's peak memory and step ms beside this
-     process's, the halo exchanges of one forward and their bytes; K2 once
-     per step and K1 once per detect on every rank;
- 29. K1 bit-equal to its plain version on rank 0's candidates (2, 1000,
+     reference's bounds; each rank's peak memory beside this process's,
+     the halo exchanges of one forward and their bytes; K2 once per step
+     and K1 once per detect on every rank;
+ 28. K1 bit-equal to its plain version on rank 0's candidates (2, 1000,
      100) and K2 on the step's GT against the 196,416 anchors, both timed;
- 30. R50-FPN-512 b4 on 2 data x 2 model gloo ranks: the same checks, with
+ 29. R50-FPN-512 b4 on 2 data x 2 model gloo ranks: the same checks, with
      a data group and a model group of two ranks each;
- 31. config #3's SSD-512 as its preset sets it, cut to b8, on 1 x 2 ranks
+ 30. config #3's SSD-512 as its preset sets it, cut to b8, on 1 x 2 ranks
      (maps of 4, 2 and 1 rows split unevenly): the same train checks; its
      detect, and config #1's SSD300 detect at b16 on 1 x 4 ranks (conv6's
      dilated windows reach past the neighbouring rank), with their gathered
@@ -185,17 +184,17 @@ convolution, pool and upsample):
      many images equal the unsplit detect at the reference's bounds is
      logged); K2 on the SSD-512 step's GT and K1 on both detects'
      candidates bit-equal and timed;
- 32. the serving R50-FPN-512 at b16 on 1 x 2 ranks: hflip TTA, two-scale
+ 31. the serving R50-FPN-512 at b16 on 1 x 2 ranks: hflip TTA, two-scale
      (512, 640) TTA and the weight-only, full-dynamic and full-static int8
      tiers, each against the unsplit path (matched one to one at the repo's
      end-to-end bar, the reference's bounds logged), K1 once per batch (3
      per two-scale batch) and bit-equal on each path's merged candidates;
- 33. the artifact exported from a row-split module, loaded on the card,
+ 32. the artifact exported from a row-split module, loaded on the card,
      equal bit for bit to the unsplit module's artifact.
 
 The group ``tools`` drives the checkpoint tools and the examples:
 
- 34. a config #3 train_cli run (3 steps, a checkpoint each) averaged by
+ 33. a config #3 train_cli run (3 steps, a checkpoint each) averaged by
      tools/average_checkpoints, bit-equal to a numpy float32 average of the
      same snapshots; eval_cli (K1 once per batch), export_model
      --checkpoint-dir (its artifact K1 once) and a one-step train_cli
@@ -207,23 +206,23 @@ The group ``tools`` drives the checkpoint tools and the examples:
 The group ``accuracy`` drives the accuracy tools (``tools/matching_analysis``,
 ``tools/ablate_matching``, ``tools/ablate_tta``, ``tools/ablate_quantize``):
 
- 35. matching_analysis on R50-FPN-512's 49104 anchors and SSD300's 8732 with
+ 34. matching_analysis on R50-FPN-512's 49104 anchors and SSD300's 8732 with
      200 GTs: K2 once per shape weight (5 per model), positives and matched
      GTs bit-equal to the plain route's, the table; SSD300's rows at w = 0
      and 0.3 equal to the recorded 4.64 / 6.25 positives per GT and 23.4 % /
      25.5 % extreme-aspect coverage; K2 timed at (1, A, 200);
- 36. both arms of seed 7 of ablate_matching at full width (SSD300, 20
+ 35. both arms of seed 7 of ablate_matching at full width (SSD300, 20
      classes, the device loader, b16, 512 training and 128 validation
      images, aspect_std 1.2, 1000 steps each): K2 once per step, K1 once per
      validation batch and bit-equal to its plain version on each arm's last
      validation batch (trained scores, timed), each arm's mAP above the
      fresh model's on the same split; each arm's row and the paired delta;
- 37. the w = 0 arm's weights through ablate_tta's and ablate_quantize's
+ 36. the w = 0 arm's weights through ablate_tta's and ablate_quantize's
      scoring: plain and hflip TTA, the float, weight-only, full-dynamic and
      full-static tiers, K1 once per batch in each, the float tier's metrics
      equal to the plain mode's, each int8 tier's drift; K1 bit-equal on the
      hflip merge and timed;
- 38. ablate_tta's RetinaNet branch: R50-FPN-512 in bf16 trained 24 steps at
+ 37. ablate_tta's RetinaNet branch: R50-FPN-512 in bf16 trained 24 steps at
      b8, then plain, hflip, and (512, 640) multi-scale TTA with and without
      hflip on 8 images: K1 once per batch and 3 times per 2-scale image; K1
      bit-equal on a 2-scale merge of those weights at score threshold 0
@@ -235,8 +234,9 @@ it), and after the last phase, or a failed one, it stops multiprocessing's
 fork server, then whatever else still runs (named in its log), then
 multiprocessing's resource tracker, and reaps them all.
 
-Prints its results, a ``{"kernels": [...]}`` line, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
+Prints its results, a ``[group]`` line as each group passes (seconds into
+the run), a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when there is no CUDA device or a phase fails.
 
     python3 chip_smoke.py
@@ -263,23 +263,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+# the card's peaks and the K1 and K2 bounds: the benchmark's frozen arithmetic
+from benchmark.harness.roofline import (  # noqa: F401 (the constants: this module's names)
+    FP32_FLOPS, HBM_BYTES_PER_S, MATCH_OPS_PER_PAIR, MATCH_SHAPE_OPS_PER_BOX,
+    MATCH_SHAPE_OPS_PER_PAIR, NMS_OPS_PER_ELEMENT, match_bound_s, nms_bound_s,
+)
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth and non-tensor fp32
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-# float ops per candidate per NMS step: 4 min/max, 2 sub, 2 clamp, 1 mul,
-# 2 add/sub, 1 clamp, 1 div, 1 compare (IoU and suppress), 1 argmax compare
-NMS_OPS_PER_ELEMENT = 15
-# float ops per (image, anchor, valid GT) of the matcher at shape_weight 0:
-# 4 min/max, 2 sub, 2 clamp, 1 mul (intersection), 1 add, 1 sub, 1 max,
-# 1 div (IoU), 1 compare (argmax over G), 1 compare (argmax over A), 1 select
-MATCH_OPS_PER_PAIR = 16
-# more per pair at shape_weight > 0 (ops/boxes.shape_similarity and
-# _quality_matrix; the kernel takes each box's two logs once): 2 sub (log
-# ratios), 2 abs, 1 add, 1 negate, 1 div by tau, 1 exp, 2 mul, 1 add (blend)
-MATCH_SHAPE_OPS_PER_PAIR = 11
-MATCH_SHAPE_OPS_PER_BOX = 2  # log w, log h of each anchor and valid GT
+ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("nms_greedy", "match_anchors", "frozen_bn")
 HOST_LIBRARIES = ("ap_matcher", "jpeg_decoder")  # the eval and data paths' host C++
 
@@ -504,15 +494,13 @@ def k1_peak_bytes(torch, nms_cuda, boxes, scores, valid, t, m) -> int:
 
 
 def phase_kernel(torch, nms, nms_cuda):
-    """Kernel vs plain on the card, bit for bit, at the path's shapes and on
-    the edge cases; then the walk route above 4096 candidates per image at
-    WALK_SHAPES and on the edge cases padded above 4096, each shape with its
-    route, scratch bytes (the kernel's layout, and the peak allocation
-    measured around one call) and times. Returns (the largest |difference|
-    seen over idx and score, K1's rows for the walk route)."""
-    from tests.torch_kernel_cases import (
-        nms_bit_equal, nms_edge_cases, nms_inputs, nms_large_cases,
-    )
+    """Kernel vs plain on the card, bit for bit, at the path's shapes and at
+    WALK_SHAPES, above 4096 candidates per image (the edge cases are the card
+    tests'), each shape with its route, scratch bytes (the kernel's layout,
+    and the peak allocation measured around one call); the walk shapes
+    timed. Returns (the largest |difference| seen over idx and score, K1's
+    rows for the walk route)."""
+    from tests.torch_kernel_cases import nms_bit_equal, nms_inputs
 
     rng = np.random.default_rng(0)
     worst = 0.0
@@ -522,11 +510,6 @@ def phase_kernel(torch, nms, nms_cuda):
                                      for a in nms_inputs(rng, b, n))
         cases.append((f"(B, N, M)=({b}, {n}, {m})", nms.class_offset_boxes(boxes, cls),
                       scores, valid, 0.5, m))
-    for name, (boxes, scores, valid, t, m) in {**nms_edge_cases(), **{
-            f"{k} (padded above 4096)": v for k, v in nms_large_cases().items()}}.items():
-        cases.append((f"{name} (B, N, M)=({scores.shape[0]}, {scores.shape[1]}, {m}), "
-                      f"t={t}", *(torch.from_numpy(a).cuda() for a in (boxes, scores, valid)),
-                      t, m))
     for name, boxes, scores, valid, t, m in cases:
         same, err, kept = nms_bit_equal(boxes, scores, valid, t, m)
         worst = max(worst, err)
@@ -689,10 +672,9 @@ def phase_serving(torch, config, serving, nms_cuda, frozen_bn_cuda, detection, r
 
     # the kernel against the plain version on the same candidates
     batch, _ = serving.prepare_batch(requests[0], 512, 16)
-    images = torch.from_numpy(batch).cuda()
+    cands = path_candidates(torch, detection, pred.module, pred.anchors, cfg.model,
+                            torch.from_numpy(batch).cuda())
     with torch.inference_mode():
-        x = detection.image_lib.normalize_images(images).permute(0, 3, 1, 2)
-        cands = detection.select_candidates(*pred.module(x), pred.anchors, cfg.model)
         got = detection.run_nms(*cands, cfg.model, backend="cuda")
         want = detection.run_nms(*cands, cfg.model, backend="plain")
     same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -700,83 +682,45 @@ def phase_serving(torch, config, serving, nms_cuda, frozen_bn_cuda, detection, r
         f"equal={same}, kept per image {got.valid.sum(1).tolist()}")
     if not same:
         raise RuntimeError("run_nms through the kernel differs from the plain version")
-
-    # end to end on the host clock: a request of 16 images (host resize and
-    # pad, upload, detect, read back), and the host resize alone
-    walls, preps = [], []
-    for _ in range(12):
-        t = time.perf_counter()
-        pred.predict(requests[0])
-        walls.append(time.perf_counter() - t)
-        t = time.perf_counter()
-        serving.prepare_batch(requests[0], 512, 16)
-        preps.append(time.perf_counter() - t)
-    walls, preps = np.array(walls[2:]) * 1e3, np.array(preps[2:]) * 1e3
-    log(f"[timing] Predictor.predict, 16 images of 200-900 px (host clock): "
-        f"{spread(walls)}, {16e3 / np.median(walls):.1f} images/s at the median; "
-        f"prepare_batch (host resize) {spread(preps)}")
-    return launches, k3_launches, {"predict_16_images_median_ms": float(np.median(walls)),
-                      "prepare_batch_16_median_ms": float(np.median(preps))}
+    return launches, k3_launches
 
 
-def phase_timing(torch, config, build_model, make_detect_fn, detection, nms,
-                 nms_cuda):
-    results = {}
-    rng = np.random.default_rng(4)
-    images = torch.from_numpy(
-        rng.integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
-    for dtype in ("bfloat16", "float32"):
-        cfg = serving_config(config, dtype).model
-        module, anchors = build_model(cfg, device="cuda",
-                                      generator=torch.Generator().manual_seed(0))
-        detect = make_detect_fn(module, anchors, cfg, device="cuda")
-        times = cuda_times_ms(lambda: detect(images), iters=30)
-        ms = float(np.median(times))
-        results[f"detect_b16_{dtype}_images_per_s"] = 16 * 1000.0 / ms
-        log(f"[timing] detect b16 {dtype} (precision 'default', so float32 "
-            f"convs may use TF32): {spread(times)} per batch, "
-            f"{16 * 1000.0 / ms:.1f} images/s at the median")
-        if dtype == "bfloat16":
-            parts, cands = detect_stages(torch, detection, module, anchors, cfg, images)
-            cfg_bf16 = cfg
-            results["detect_b16_bf16_stage_median_ms"] = parts
-            log("[timing] detect b16 bf16 stages (median ms): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in parts.items()))
-        del module, detect
+def path_candidates(torch, detection, module, anchors, cfg, images):
+    """The candidates detect hands NMS for ``images`` (uint8 NHWC on the
+    card)."""
+    with torch.inference_mode():
+        x = detection.image_lib.normalize_images(images).permute(0, 3, 1, 2)
+        return detection.select_candidates(*module(x), anchors, cfg)
 
-    # the kernel on the main path's own candidates (bf16 model, batch 16)
-    results["nms"] = nms_timing(nms, nms_cuda, cands, cfg_bf16.detect,
-                                "the path's candidates")
-    # the same shape with random scores, which the kernel has to sort (the
-    # path's candidates arrive in order and skip the sort)
+
+def phase_nms_timing(torch, config, build_model, detection, nms, nms_cuda):
+    """K1 on the serving path's own candidates (the bf16 model at b16), and
+    on the same shape with random scores. Returns the first's timing."""
     from tests.torch_kernel_cases import nms_inputs
 
+    cfg = serving_config(config, "bfloat16").model
+    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
+    cands = path_candidates(torch, detection, module, anchors, cfg, images)
+    del module
+    timing = nms_timing(nms, nms_cuda, cands, cfg.detect, "the path's candidates")
+    # random scores, which the kernel has to sort (the path's candidates
+    # arrive in order and skip the sort)
     b, n = cands[1].shape
-    m, t = cfg_bf16.detect.max_detections, cfg_bf16.detect.nms_iou_threshold
+    m, t = cfg.detect.max_detections, cfg.detect.nms_iou_threshold
     rb, rs, rc, rv = (torch.from_numpy(x).cuda() for x in nms_inputs(np.random.default_rng(7), b, n))
     rshift = nms.class_offset_boxes(rb, rc)
     log(f"[timing] nms_greedy ({b}, {n}, {m}) on random scores (the sort runs): "
         + fmt_device(*device_ms_per_call(
             lambda: nms_cuda.greedy_nms_cuda(rshift, rs, rv, t, m))))
-    return results
+    return timing
 
 
-def detect_stages(torch, detection, module, anchors, cfg, images):
-    """Median device ms of each stage of detect on ``images`` (normalize,
-    forward, select_candidates, run_nms), and the candidates."""
-    with torch.inference_mode():
-        x = detection.image_lib.normalize_images(images).permute(0, 3, 1, 2)
-        out = module(x)
-        cands = detection.select_candidates(*out, anchors, cfg)
-        stages = {
-            "normalize": lambda: detection.image_lib.normalize_images(images),
-            "forward": lambda: module(x),
-            "select_candidates": lambda: detection.select_candidates(*out, anchors, cfg),
-            "run_nms": lambda: detection.run_nms(*cands, cfg),
-        }
-        parts = {k: float(np.median(cuda_times_ms(f, iters=20)))
-                 for k, f in stages.items()}
-    return parts, cands
+def bound_label(bound_s, bytes_s):
+    """What bounds a kernel: "bytes" where moving them takes the bound's
+    time, else "operations"."""
+    return "bytes" if bytes_s >= bound_s else "operations"
 
 
 def nms_timing(nms, nms_cuda, cands, det, name):
@@ -795,28 +739,23 @@ def nms_timing(nms, nms_cuda, cands, det, name):
                             iters=5, warmup=1)
     k_ms, p_ms = float(np.median(k_times)), float(np.median(p_times))
     res = nms_cuda.greedy_nms_cuda(shifted, scores, valid, t, m)
-    kept = res.valid.sum(1).cpu().numpy()
-    # steps the data needs: one per kept box, plus the step that finds none
-    steps = int(np.sum(kept + (kept < m)))
-    ops = steps * n * NMS_OPS_PER_ELEMENT
-    nbytes = b * n * (16 + 4 + 1) + b * m * (4 + 4 + 1)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
+    kept = [int(k) for k in res.valid.sum(1).cpu()]
+    bound = nms_bound_s(b, n, m, kept)
+    bound_by = bound_label(bound, nms_bound_s(b, n, m, []))  # no step: the bytes alone
     log(f"[timing] nms_greedy ({b}, {n}, {m}) on {name} "
         f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
         f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
-        f"{spread(p_times)}; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, "
-        f"{ops} ops over {steps} steps), library call: none (no PyTorch op "
-        f"computes greedy NMS)")
-    return dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound_ms,
+        f"{spread(p_times)}; bound {bound * 1e3:.5f} ms ({bound_by}; {sum(kept)} kept), "
+        f"library call: none (no PyTorch op computes greedy NMS)")
+    return dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound * 1e3,
                 bound_by=bound_by)
 
 
 def phase_match_kernel(torch, config, anchors_for_model):
-    """K2 vs plain on the card at the path's shapes and on the edge cases.
-    Returns the worst |difference| over best_q and reg (the assignments must
-    be equal)."""
-    from tests.torch_kernel_cases import match_check, match_edge_cases, match_inputs
+    """K2 vs plain on the card at the path's shapes (the edge cases are the
+    card tests'). Returns the worst |difference| over best_q and reg (the
+    assignments must be equal)."""
+    from tests.torch_kernel_cases import match_check, match_inputs
 
     rng = np.random.default_rng(5)
     r50 = config.get_config("retinanet_r50_fpn").model
@@ -825,7 +764,6 @@ def phase_match_kernel(torch, config, anchors_for_model):
              for model, b, g, kind, sw in ((r50, 16, 64, "ties", 0.0),
                                            (r50, 16, 100, "random", 0.0),
                                            (r101, 4, 100, "random", 0.3))]
-    cases += [(name, r50, *case) for name, case in match_edge_cases().items()]
     worst = 0.0
     for name, model, gt, labels, valid, sw in cases:
         anchors = anchors_for_model(model).cuda()
@@ -898,12 +836,11 @@ def train_check(torch, train, build_model, cfg, batch, label, seed=7, spread=Fal
         state = train.create_train_state(module, cfg, device=dev)
         step = train.make_train_step(module, anchors, cfg, augment=False, device=dev)
         start = {n: p.detach().clone() for n, p in module.named_parameters()}
-        t = time.perf_counter()
         metrics[key] = []
         for _ in range(2):
             state, m = step(state, batch)
             metrics[key].append({k: float(v) for k, v in m.items()})
-        runs[key] = (module, time.perf_counter() - t, start)
+        runs[key] = (module, start)
     worst = {}
     for i, (c, g) in enumerate(zip(metrics["cpu"], metrics["cuda"])):
         for key in ("loss", "loss_cls", "loss_box", "grad_norm", "num_pos"):
@@ -911,7 +848,7 @@ def train_check(torch, train, build_model, cfg, batch, label, seed=7, spread=Fal
             worst[key] = max(worst.get(key, 0.0), rel)
             if not (np.isfinite(g[key]) and rel <= 1e-4):
                 raise RuntimeError(f"train step {i + 1} {key}: card {g[key]} vs CPU {c[key]}")
-    cpu, _, start = runs["cpu"]
+    cpu, start = runs["cpu"]
 
     def distance(other):
         """(|update - CPU update| / |CPU update|, max |param - CPU param|)"""
@@ -940,7 +877,7 @@ def train_check(torch, train, build_model, cfg, batch, label, seed=7, spread=Fal
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + f" (bound 1e-4); parameter update |card - CPU| / |CPU| = {update_rel:.2e} "
         f"(bound {bound_u:.2e}), max |param err| {max_err:.2e} (bound {bound_e:.2e})"
-        f"{note}; host seconds: CPU {runs['cpu'][1]:.1f}, card {runs['cuda'][1]:.1f}")
+        f"{note}")
     # the update is lr * (g + wd * p): its small gradient entries are float32
     # sums over up to 2 * 256 * 256 positions in another order, with
     # cancellation, so the update's norm agrees less tightly than grad_norm
@@ -988,85 +925,25 @@ def phase_training(torch, train, build_model, matching_cuda, nms_cuda, reset_cou
     return state, step, module, anchors, cfg, batch, launches
 
 
-def phase_train_timing(torch, train, matching, matching_cuda, state, step, module,
-                       anchors, cfg, batch, tag, ties=True):
-    """A training path's step time, stage breakdown and K2's time on its
-    augmented batch (and, with ``ties``, on bench_train.py's batch).
-    ``tag`` names the results (e.g. "train_b16_bf16")."""
+def phase_train_match_timing(torch, matching, matching_cuda, state, anchors, cfg, batch,
+                             ties=True):
+    """K2's time on a training path's batch augmented as its step augments
+    it (and, with ``ties``, on bench_train.py's batch). Returns the first's
+    timing."""
     from shape_based_object_detection_torch.data.augment import augment_batch
-    from shape_based_object_detection_torch.losses import detection_loss
-    from shape_based_object_detection_torch.models.retinanet import conv_precision
-
-    results = {}
-    b = batch["images"].shape[0]
-    times = cuda_times_ms(lambda: step(state, batch), iters=20)
-    ms = float(np.median(times))
-    results[f"{tag}_images_per_s"] = b * 1000.0 / ms
-    results[f"{tag}_step_median_ms"] = ms
-    log(f"[timing] {tag} step (augment, forward, match, loss, backward, "
-        f"SGD): {spread(times)} per step, {b * 1000.0 / ms:.1f} images/s at the median")
+    from tests.torch_kernel_cases import match_inputs
 
     images, boxes, labels, valid = (batch[k] for k in ("images", "boxes", "labels", "valid"))
     aug = augment_batch(state.generator, images, boxes, labels, valid, cfg.data,
                         cfg.model.image_size)
-    x = aug[0].permute(0, 3, 1, 2)
-    variances = cfg.model.anchors.variances
-    match = matching.match_batch(anchors, aug[1], aug[2], aug[3], cfg.match, variances)
-    params = list(module.parameters())
-    opt = train.make_optimizer(cfg.train)
-    mask = list(train.decay_mask(module).values())
-
-    def forward(loss=False, backward=False):
-        for p in params:
-            p.grad = None
-        with conv_precision(cfg.model.precision):
-            with torch.autocast("cuda", dtype=torch.bfloat16,
-                                enabled=cfg.model.dtype == "bfloat16"):
-                out = module(x, train=True)
-            if loss or backward:
-                out, _ = detection_loss(*out, match, cfg.loss)
-            if backward:
-                out.backward()
-
-    def fwd_bwd():
-        forward(backward=True)
-
-    fwd_bwd()
-    grads = [p.grad for p in params]
-    data = [p.data for p in params]
-    stages = {
-        "augment": lambda: augment_batch(state.generator, images, boxes, labels, valid,
-                                         cfg.data, cfg.model.image_size),
-        "forward": forward,
-        "forward+loss": lambda: forward(loss=True),
-        "forward+loss+backward": fwd_bwd,
-        "match_batch": lambda: matching.match_batch(anchors, aug[1], aug[2], aug[3],
-                                                    cfg.match, variances),
-        "optimizer": lambda: opt.apply(state.opt_state, data, grads, mask),
-    }
-    parts = {k: float(np.median(cuda_times_ms(f, iters=10))) for k, f in stages.items()}
-    results[f"{tag}_stage_median_ms"] = parts
-    step_parts = ("augment", "forward+loss+backward", "match_batch", "optimizer")
-    log(f"[timing] {tag} stages (median ms; the forward stages record the "
-        "autograd graph and take the matches as given): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-        + f"; sum of {', '.join(step_parts)} {sum(parts[k] for k in step_parts):.3f} "
-        f"vs step {ms:.3f}")
-
-    # K2 on the path's own augmented batch, then on bench_train.py's batch
-    from tests.torch_kernel_cases import match_inputs
-
-    entry = None
     cases = [("the path's augmented batch", aug[1:4])]
     if ties:
         cases.append(("bench_train.py's batch (8 of 64 GTs valid, all one box)",
                       [torch.from_numpy(x).cuda()
                        for x in match_inputs(np.random.default_rng(9), 16, 64, "ties")]))
-    for name, (gt, lbl, ok) in cases:
-        timed = match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok)
-        entry = entry or timed
-    results["match"] = entry
-    return results
+    timed = [match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok)
+             for name, (gt, lbl, ok) in cases]
+    return timed[0]
 
 
 def match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok):
@@ -1082,65 +959,18 @@ def match_timing(torch, matching, matching_cuda, anchors, cfg, name, gt, lbl, ok
     p_times = cuda_times_ms(lambda: matching.match_reductions_plain(*args), iters=10)
     b, g = ok.shape
     a = anchors.shape[0]
-    # the data needs the IoU of every anchor with every valid GT; an
-    # invalid row needs no arithmetic (its quality is -1); the shape
-    # term adds its per-pair arithmetic and each box's two logs
+    # an invalid row needs no arithmetic (its quality is -1)
     n_valid = int(ok.sum())
-    ops = a * n_valid * MATCH_OPS_PER_PAIR
-    if sw > 0:
-        ops += (a * n_valid * MATCH_SHAPE_OPS_PER_PAIR
-                + (a + n_valid) * MATCH_SHAPE_OPS_PER_BOX)
-    nbytes = a * 16 + b * g * (16 + 4 + 1) + b * a * (4 + 4 + 4 + 16) + b * g * 4
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1000.0
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations"
+    bound = match_bound_s(b, a, g, n_valid, sw)
+    bound_by = bound_label(bound, match_bound_s(b, a, g, 0, 0.0))  # no pair: the bytes alone
     log(f"[timing] match_anchors (B, A, G)=({b}, {a}, {g}) on {name} "
         f"({nvidia_smi_line()}): kernel CUDA events between back-to-back calls "
         f"{spread(k_times)}; {fmt_device(dev_ms, dev_names)}; plain "
-        f"{spread(p_times)}; bound {bound_ms:.5f} ms "
-        f"({bound_by}: {nbytes} bytes, {ops} ops over {n_valid} valid GTs, "
-        f"shape_weight {sw}), library call: none (no PyTorch op computes the "
-        f"matching)")
+        f"{spread(p_times)}; bound {bound * 1e3:.5f} ms "
+        f"({bound_by}; {n_valid} valid GTs, shape_weight {sw}), library call: none (no "
+        f"PyTorch op computes the matching)")
     return dict(ms=float(np.median(k_times)), device_ms=dev_ms,
-                plain_ms=float(np.median(p_times)), bound_ms=bound_ms, bound_by=bound_by)
-
-
-def phase_train_profile(torch, state, step, batch, step_ms, tag):
-    """Where the train step's device time goes: a torch.profiler trace of
-    3 steps (kernel time by operator), the device's busy time per step
-    against the step's CUDA-event time (the idle share), and the host's
-    time to enqueue a step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    enqueue = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        step(state, batch)
-        enqueue.append((time.perf_counter() - t) * 1e3)
-    torch.cuda.synchronize()
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(state, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    if busy <= 0.0:  # a profiler without CUPTI records no kernels
-        log(f"[profile] {tag} step: device busy time not measured (the profiler "
-            "recorded no kernels)")
-        return {}
-    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:10]
-    idle = 1.0 - busy / step_ms
-    log(f"[profile] {tag} step: device busy {busy:.3f} ms per step (sum of "
-        f"{len(kernels) // n} kernels under torch.profiler) vs the step's {step_ms:.3f} ms "
-        f"(CUDA events, unprofiled): idle share {idle:.3f}; host enqueue of a step "
-        f"(no sync) median {np.median(enqueue):.3f} ms of {len(enqueue)}; device ms per "
-        f"step by operator: " + ", ".join(
-            f"{e.key} {e.self_device_time_total / 1e3 / n:.3f} ({e.count // n})"
-            for e in ops))
-    return {f"{tag}_device_busy_ms": busy, f"{tag}_idle_share": idle,
-            f"{tag}_host_enqueue_median_ms": float(np.median(enqueue))}
+                plain_ms=float(np.median(p_times)), bound_ms=bound * 1e3, bound_by=bound_by)
 
 
 def ssd_train_config(config, batch, **train_changes):
@@ -1196,7 +1026,7 @@ def phase_ssd_serving(torch, config, serving, nms_cuda, reset_counts):
     """The SSD300 serving path: config #1's Predictor (fp32, batch 1) answers
     requests of 1 and 3 images of differing sizes, a bf16 batch-16
     Predictor a request of 16; K1 once per batch. Returns (K1 launches,
-    the two Predictors)."""
+    the bf16 Predictor)."""
     cfg = config.get_config("config1_ssd300_infer")
     bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
     preds = [serving.Predictor(c, batch_size=b, device="cuda",
@@ -1221,51 +1051,21 @@ def phase_ssd_serving(torch, config, serving, nms_cuda, reset_counts):
     log(f"[serving] SSD300: config #1 Predictor (fp32, b1) answered requests of 1 and 3 "
         f"images, a bf16 b16 Predictor one of 16; detections per image {counts}; NMS "
         f"kernel launches {launches} for {batches} batches")
-    return launches, preds
+    return launches, preds[1]
 
 
-def phase_ssd_timing(torch, detection, nms, nms_cuda, preds):
-    """SSD300 detect images/s at b1 and b16 in float32 and bf16 (the two
-    Predictors' modules), stage breakdowns at b1 fp32 and b16 bf16, K1
-    against the plain version on the b16 bf16 candidates, and K1's time
-    there."""
-    from shape_based_object_detection_torch.detection import make_detect_fn
-    from tests.torch_kernel_cases import nms_bit_equal
-
-    results = {}
-    rng = np.random.default_rng(13)
-    images = torch.from_numpy(rng.integers(0, 256, (16, 300, 300, 3), dtype=np.uint8)).cuda()
-    for pred, dtype in zip(preds, ("float32", "bfloat16")):
-        model_cfg = pred.cfg.model
-        detect = make_detect_fn(pred.module, pred.anchors, model_cfg, device="cuda")
-        for b in (1, 16):
-            times = cuda_times_ms(lambda: detect(images[:b]), iters=30)
-            ms = float(np.median(times))
-            results[f"ssd300_detect_b{b}_{dtype}_images_per_s"] = b * 1000.0 / ms
-            log(f"[timing] SSD300 detect b{b} {dtype} (precision 'default'): "
-                f"{spread(times)} per batch, {b * 1000.0 / ms:.1f} images/s at the median")
-        b = 1 if dtype == "float32" else 16
-        parts, cands = detect_stages(torch, detection, pred.module, pred.anchors,
-                                     model_cfg, images[:b])
-        results[f"ssd300_detect_b{b}_{dtype}_stage_median_ms"] = parts
-        log(f"[timing] SSD300 detect b{b} {dtype} stages (median ms): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in parts.items()))
-
-    # K1 on the b16 bf16 path's candidates, against the plain version
-    boxes, scores, cls, valid = cands
-    det = model_cfg.detect
-    shifted = nms.class_offset_boxes(boxes, cls)
-    same, err, kept = nms_bit_equal(shifted, scores, valid, det.nms_iou_threshold,
-                                    det.max_detections)
-    log(f"[kernel] nms_greedy on the SSD300 bf16 b16 candidates (B, N, M)="
-        f"({scores.shape[0]}, {scores.shape[1]}, {det.max_detections}), threshold "
-        f"{det.score_threshold}: {int(valid.sum())} valid candidates, bit-equal={same}, "
-        f"kept={kept}")
-    if not same:
-        raise RuntimeError("nms_greedy differs from the plain version on the SSD300 path")
-    results["nms"] = nms_timing(nms, nms_cuda, cands, det, "the SSD300 path's candidates")
-    results["nms"]["max_abs_err"] = err
-    return results
+def phase_ssd_nms(torch, detection, nms, nms_cuda, pred):
+    """K1 against the plain version on the candidates of the SSD300 bf16
+    b16 Predictor's detect, and K1's time there. Returns the timing, with
+    the largest difference as ``max_abs_err``."""
+    images = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (16, 300, 300, 3), dtype=np.uint8)).cuda()
+    cands = path_candidates(torch, detection, pred.module, pred.anchors, pred.cfg.model, images)
+    det = pred.cfg.model.detect
+    err = k1_on(torch, nms, cands, det, "the SSD300 bf16 b16 candidates")
+    timing = nms_timing(nms, nms_cuda, cands, det, "the SSD300 path's candidates")
+    timing["max_abs_err"] = err
+    return timing
 
 
 def step_peak(torch, step, state, batch):
@@ -1315,7 +1115,7 @@ def phase_remat(torch, train, build_model, module, anchors, cfg, batch):
 
 def phase_train_bn(torch, config, train, build_model):
     """Trainable BatchNorm on R50-FPN-512: two fp32 steps at b2 card vs CPU
-    (phase 7's tolerances, the update's held to the CPU's own float32
+    (group 7's tolerances, the update's held to the CPU's own float32
     spread; running statistics within 1e-5 + 1e-5*|cpu|), then a bf16 b16
     step with train_bn and model.remat against the same step without
     remat: the running statistics equal within 1e-6 (updated once)."""
@@ -1568,111 +1368,22 @@ def phase_frozen_bn_kernel(torch, config, serving):
 # ---------------------------------------------------------------------------
 
 
-def frozen_bn_before_repair(self, x, train=False):
-    """The frozen BatchNorm branch before the repair: the running statistics
-    folded into a scale and shift in float32, both cast to the input's type,
-    one multiply-add in that type (bf16 rounds three times, not once)."""
-    import torch
-
-    shape = (1, -1, 1, 1)
-    mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-    shift = self.bias.float() - self.running_mean.float() * mul
-    return torch.addcmul(shift.to(x.dtype).view(shape), x, mul.to(x.dtype).view(shape))
-
-
-class FrozenBnVariant:
-    """``with FrozenBnVariant(resnet, before=True):`` runs every BatchNorm
-    with the branch before the repair; ``before=False`` keeps the repaired
-    one. Either way as layers, the plain composition: K3 does not run."""
-
-    def __init__(self, resnet, before: bool):
-        self.resnet, self.before = resnet, before
-        self.saved = resnet.BatchNorm.forward, resnet.fuses
-
-    def __enter__(self):
-        if self.before:
-            self.resnet.BatchNorm.forward = frozen_bn_before_repair
-        self.resnet.fuses = lambda *args: False
-        return self
-
-    def __exit__(self, *exc):
-        self.resnet.BatchNorm.forward, self.resnet.fuses = self.saved
-
-
-def in_turns(variants, fn, rounds=2):
-    """``fn(variant)`` -> list of times, for each variant in turns (a, b, b,
-    a, ...) ``rounds`` times; returns {variant: all its times}."""
-    times = {v: [] for v in variants}
-    for r in range(rounds):
-        for v in (variants if r % 2 == 0 else variants[::-1]):
-            times[v].extend(fn(v))
-    return {v: np.array(t) for v, t in times.items()}
-
-
-def profile_op_ms(torch, fn, n, names):
-    """Device ms per call of ``fn`` (n calls under torch.profiler) of each
-    operator in ``names``, and of all kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ops = {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()}
-    total = sum(e.self_device_time_total for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
-    return {k: ops.get(k, 0.0) for k in names}, total
-
-
-def bn_layer_inputs(torch, resnet, module, run):
-    """(BatchNorm, input shape, dtype, memory format) of every BatchNorm
-    call in ``run()``."""
-    seen = []
-    plain = FrozenBnVariant(resnet, before=False)  # the layers run, and their hooks
-    hooks = [m.register_forward_pre_hook(
-        lambda m, args: seen.append((m, args[0].shape, args[0].dtype,
-                                     args[0].is_contiguous(memory_format=torch.channels_last))))
-        for m in module.modules() if isinstance(m, resnet.BatchNorm)]
+@contextlib.contextmanager
+def plain_batchnorm(resnet):
+    """Inside the block every frozen BatchNorm runs as the plain layers: K3
+    does not run."""
+    fuses = resnet.fuses
+    resnet.fuses = lambda *args: False
     try:
-        with plain:
-            run()
+        yield
     finally:
-        for h in hooks:
-            h.remove()
-    return seen
+        resnet.fuses = fuses
 
 
-def bn_alone_ms(torch, resnet, layers, backward, before):
-    """Device ms (torch.profiler, the kernels of 5 runs) of every frozen
-    BatchNorm call of one forward alone, on random inputs of its shapes;
-    with ``backward`` its backward too (grad to the input and to the scale
-    and bias). Its ~350 launches would make CUDA events time the host."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    xs = []
-    for bn, shape, dtype, cl in layers:
-        x = torch.randn(shape, device="cuda", dtype=dtype, generator=gen)
-        if cl:
-            x = x.contiguous(memory_format=torch.channels_last)
-        xs.append((bn, x.requires_grad_(backward)))
-
-    def run():
-        for bn, x in xs:
-            y = bn(x)
-            if backward:  # the gradients of the input, the scale and the bias
-                torch.autograd.grad(y, (x, bn.weight, bn.bias), y.detach())
-
-    with FrozenBnVariant(resnet, before), torch.set_grad_enabled(backward):
-        return profile_op_ms(torch, run, 5, ())[1]
-
-
-def phase_bn_repair(torch, config, train, build_model, make_detect_fn):
-    """The frozen-BatchNorm repair on the card: the R50-512 backbone's bf16
-    forward card vs CPU (both against the CPU's float32 one); then before and
-    after the repair in one run, in turns: detect b16 bf16 images/s, the
-    bf16 b16 train step, the profiler's aten::mul per step, and the frozen
-    BatchNorm calls alone at the step's and detect's shapes."""
+def phase_bn_repair(torch, config, build_model):
+    """The repaired frozen BatchNorm on the card: the R50-512 backbone's bf16
+    forward as the plain layers, card vs CPU, both against the CPU's
+    float32 one."""
     from shape_based_object_detection_torch.models import resnet
 
     f32 = dataclasses.replace(config.get_config("retinanet_r50_fpn").model,
@@ -1705,9 +1416,8 @@ def phase_bn_repair(torch, config, train, build_model, make_detect_fn):
             xd = x.to(dev, torch.bfloat16)
             if dev == "cuda":
                 xd = xd.contiguous(memory_format=torch.channels_last)
-            for before in (False, True):
-                with FrozenBnVariant(resnet, before):
-                    outs[(dev, before)] = [o.float().cpu() for o in m.backbone(xd)]
+            with plain_batchnorm(resnet):
+                outs[dev] = [o.float().cpu() for o in m.backbone(xd)]
             del m
     ref = outs["cpu32"]
 
@@ -1715,230 +1425,25 @@ def phase_bn_repair(torch, config, train, build_model, make_detect_fn):
         return float(sum((a - b).abs().sum() for a, b in zip(o, r))
                      / sum(b.numel() for b in r))
 
-    card, cpu = outs[("cuda", False)], outs[("cpu", False)]
+    card, cpu = outs["cuda"], outs["cpu"]
     e_card, e_cpu = mean_err(card, ref), mean_err(cpu, ref)
-    e_card_before, e_cpu_before = mean_err(outs[("cuda", True)], ref), mean_err(
-        outs[("cpu", True)], ref)
     card_cpu = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
     finite = all(bool(torch.isfinite(o).all()) for o in card)
     log(f"[bn] R50-512 backbone (C3-C5) in bf16, one 512 px image, the same weights: mean "
         f"|bf16 - CPU float32| card {e_card:.5f}, CPU {e_cpu:.5f} (bound: card <= 2 x CPU "
-        f"+ 1e-3); card vs CPU bf16 max |err| {card_cpu:.4f}; with the frozen branch before "
-        f"the repair: card {e_card_before:.5f}, CPU {e_cpu_before:.5f}")
+        f"+ 1e-3); card vs CPU bf16 max |err| {card_cpu:.4f}")
     if not (finite and e_card <= 2 * e_cpu + 1e-3):
         raise RuntimeError(f"bf16 forward on the card is off: {e_card} vs CPU {e_cpu}")
-    results = {"bn_bf16_forward_mean_err_card": e_card, "bn_bf16_forward_mean_err_cpu": e_cpu,
-               "bn_bf16_forward_mean_err_card_before": e_card_before,
-               "bn_bf16_forward_mean_err_cpu_before": e_cpu_before}
-
-    # detect b16 bf16 before and after, in turns
-    cfg = serving_config(config, "bfloat16").model
-    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    detect = make_detect_fn(module, anchors, cfg, device="cuda")
-    images = torch.from_numpy(np.random.default_rng(4).integers(
-        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
-
-    def detect_times(before):
-        with FrozenBnVariant(resnet, before):
-            return cuda_times_ms(lambda: detect(images), iters=15)
-
-    d = in_turns((False, True), detect_times, rounds=3)
-    d_dev = {}
-    for before in (False, True):
-        with FrozenBnVariant(resnet, before):
-            d_dev[before] = profile_op_ms(torch, lambda: detect(images), 5, ())[1]
-    with torch.inference_mode():
-        xn = (images.float() / 255.0).permute(0, 3, 1, 2)
-        layers_det = bn_layer_inputs(torch, resnet, module, lambda: module(xn))
-    bn_det = {b: bn_alone_ms(torch, resnet, layers_det, False, b) for b in (False, True)}
-    del module, detect
-    torch.cuda.empty_cache()
-
-    # the bf16 b16 train step before and after, in turns
-    tcfg = train_config(config, "bfloat16", 16)
-    module, anchors = build_model(tcfg.model, device="cuda", train=True,
-                                  generator=torch.Generator().manual_seed(0))
-    state = train.create_train_state(module, tcfg)
-    step = train.make_train_step(module, anchors, tcfg)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in train_batch(np.random.default_rng(8), 16).items()}
-
-    def step_times(before):
-        with FrozenBnVariant(resnet, before):
-            return cuda_times_ms(lambda: step(state, batch), iters=10)
-
-    t = in_turns((False, True), step_times, rounds=3)
-    names = ("aten::mul", "aten::add", "aten::sub", "aten::addcmul", "aten::copy_")
-    prof = {}
-    for before in (False, True):
-        with FrozenBnVariant(resnet, before):
-            prof[before] = profile_op_ms(torch, lambda: step(state, batch), 3, names)
-    x = torch.randn(16, 3, 512, 512, device="cuda").contiguous(memory_format=torch.channels_last)
-
-    def train_forward():
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            module(x, train=True)
-
-    layers_train = bn_layer_inputs(torch, resnet, module, train_forward)
-    bn_train = {b: bn_alone_ms(torch, resnet, layers_train, True, b) for b in (False, True)}
-    del module, state, step, batch
-    torch.cuda.empty_cache()
-    smi = nvidia_smi_line()
-    for before, label in ((False, "after"), (True, "before")):
-        ops, total = prof[before]
-        results[f"bn_{label}_detect_b16_bf16_images_per_s"] = 16e3 / float(np.median(d[before]))
-        results[f"bn_{label}_detect_b16_bf16_ms"] = float(np.median(d[before]))
-        results[f"bn_{label}_detect_b16_bf16_device_ms"] = d_dev[before]
-        results[f"bn_{label}_train_b16_bf16_step_ms"] = float(np.median(t[before]))
-        results[f"bn_{label}_train_step_aten_mul_ms"] = ops["aten::mul"]
-        results[f"bn_{label}_train_step_device_ms"] = total
-        results[f"bn_{label}_frozen_bn_train_step_ms"] = bn_train[before]
-        results[f"bn_{label}_frozen_bn_detect_b16_ms"] = bn_det[before]
-        log(f"[bn] {label} the repair ({smi}): detect b16 bf16 {spread(d[before])}, "
-            f"{16e3 / np.median(d[before]):.1f} images/s, device {d_dev[before]:.3f} ms per "
-            f"call (torch.profiler); train step b16 bf16 {spread(t[before])}; device ms per "
-            f"step (torch.profiler, 3 steps): all kernels {total:.3f}, "
-            + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
-            + f"; device ms (torch.profiler) of the {len(layers_train)} frozen BatchNorm calls "
-            f"of a step alone, forward and backward, {bn_train[before]:.3f}, and of the "
-            f"{len(layers_det)} of a detect b16 forward {bn_det[before]:.3f}")
-    results.update(bn_repair_float32_cost(torch, config, train, build_model, make_detect_fn,
-                                          resnet))
-    return results
-
-
-def bn_repair_float32_cost(torch, config, train, build_model, make_detect_fn, resnet):
-    """The repair's cost in float32, where it makes three float32 passes
-    (subtract, multiply, add) for the one addcmul before it: detect b16
-    float32 and the float32 b16 train step, before and after in turns, and
-    the frozen BatchNorm calls alone at their shapes."""
-    results = {}
-    cfg = serving_config(config, "float32").model
-    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    detect = make_detect_fn(module, anchors, cfg, device="cuda")
-    images = torch.from_numpy(np.random.default_rng(4).integers(
-        0, 256, (16, 512, 512, 3), dtype=np.uint8)).cuda()
-
-    def detect_times(before):
-        with FrozenBnVariant(resnet, before):
-            return cuda_times_ms(lambda: detect(images), iters=15)
-
-    d = in_turns((False, True), detect_times, rounds=3)
-    d_dev = {}
-    for before in (False, True):
-        with FrozenBnVariant(resnet, before):
-            d_dev[before] = profile_op_ms(torch, lambda: detect(images), 5, ())[1]
-    with torch.inference_mode():
-        xn = (images.float() / 255.0).permute(0, 3, 1, 2)
-        layers_det = bn_layer_inputs(torch, resnet, module, lambda: module(xn))
-    bn_det = {b: bn_alone_ms(torch, resnet, layers_det, False, b) for b in (False, True)}
-    del module, detect
-    torch.cuda.empty_cache()
-
-    tcfg = train_config(config, "float32", 16)
-    module, anchors = build_model(tcfg.model, device="cuda", train=True,
-                                  generator=torch.Generator().manual_seed(0))
-    state = train.create_train_state(module, tcfg)
-    step = train.make_train_step(module, anchors, tcfg)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in train_batch(np.random.default_rng(8), 16).items()}
-
-    def step_times(before):
-        with FrozenBnVariant(resnet, before):
-            return cuda_times_ms(lambda: step(state, batch), iters=10)
-
-    t = in_turns((False, True), step_times, rounds=3)
-    t_dev = {}
-    for before in (False, True):
-        with FrozenBnVariant(resnet, before):
-            t_dev[before] = profile_op_ms(torch, lambda: step(state, batch), 3, ())[1]
-    x = torch.randn(16, 3, 512, 512, device="cuda").contiguous(memory_format=torch.channels_last)
-    layers_train = bn_layer_inputs(torch, resnet, module, lambda: module(x, train=True))
-    bn_train = {b: bn_alone_ms(torch, resnet, layers_train, True, b) for b in (False, True)}
-    del module, state, step, batch
-    torch.cuda.empty_cache()
-    smi = nvidia_smi_line()
-    for before, label in ((False, "after"), (True, "before")):
-        results[f"bn_{label}_detect_b16_fp32_images_per_s"] = 16e3 / float(np.median(d[before]))
-        results[f"bn_{label}_detect_b16_fp32_ms"] = float(np.median(d[before]))
-        results[f"bn_{label}_detect_b16_fp32_device_ms"] = d_dev[before]
-        results[f"bn_{label}_train_b16_fp32_step_ms"] = float(np.median(t[before]))
-        results[f"bn_{label}_train_b16_fp32_step_device_ms"] = t_dev[before]
-        results[f"bn_{label}_frozen_bn_train_step_fp32_ms"] = bn_train[before]
-        results[f"bn_{label}_frozen_bn_detect_b16_fp32_ms"] = bn_det[before]
-        log(f"[bn] {label} the repair, float32 ({smi}): detect b16 fp32 {spread(d[before])}, "
-            f"{16e3 / np.median(d[before]):.1f} images/s, device {d_dev[before]:.3f} ms per "
-            f"call (torch.profiler); train step b16 fp32 {spread(t[before])}, device "
-            f"{t_dev[before]:.3f} ms per step (torch.profiler, 3 steps); device ms "
-            f"(torch.profiler) of the {len(layers_train)} "
-            f"frozen BatchNorm calls of a step alone, forward and backward, "
-            f"{bn_train[before]:.3f}, and of the {len(layers_det)} of a detect b16 forward "
-            f"{bn_det[before]:.3f}")
-    return results
-
-
-def kineto_intervals(torch, prof):
-    """The card's activity of a torch.profiler run as (stream, start_ns,
-    end_ns) triples, and the host's ranges as (name, start_ns, end_ns). The
-    spans of record_function ranges on the card's timeline cover idle gaps
-    and are left out."""
-    dev, host = [], []
-    for e in prof.profiler.kineto_results.events():
-        start, dur = e.start_ns(), e.duration_ns()
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if not e.is_user_annotation():
-                dev.append((e.device_resource_id(), start, start + dur))
-        else:
-            host.append((e.name(), start, start + dur))
-    return dev, host
-
-
-def union_length(intervals, lo=None, hi=None):
-    """Total length of the union of (start, end) intervals, clipped to
-    [lo, hi] when given."""
-    spans = sorted((max(s, lo) if lo is not None else s, min(e, hi) if hi is not None else e)
-                   for s, e in intervals)
-    total, cur_s, cur_e = 0, None, None
-    for s, e in spans:
-        if e <= s:
-            continue
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
-def overlap_share(dev):
-    """Of the device time on the streams other than the busiest (the side
-    streams), the share that ran while the busiest stream had a kernel."""
-    by_stream = {}
-    for sid, s, e in dev:
-        by_stream.setdefault(sid, []).append((s, e))
-    main = max(by_stream, key=lambda k: union_length(by_stream[k]))
-    main_spans = sorted(by_stream[main])
-    side = [iv for k, v in by_stream.items() if k != main for iv in v]
-    side_time = sum(e - s for s, e in side)
-    both = 0
-    for s, e in side:
-        both += union_length([(ms, me) for ms, me in main_spans if me > s and ms < e], s, e)
-    return (both / side_time if side_time else 0.0), len(by_stream), len(side), side_time / 1e6
+    return {"bn_bf16_forward_mean_err_card": e_card, "bn_bf16_forward_mean_err_cpu": e_cpu}
 
 
 def phase_pipelined(torch, train, build_model, matching_cuda, cfg, batches, tag):
     """The pipelined step against the plain step: the same weights, batches
-    and generator seed give the same losses (within 1e-6 relative); step
-    times in turns; the share of the side stream's kernels that overlapped
-    the main stream's (torch.profiler over 3 steps)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and generator seed give the same losses (within 1e-6 relative), K2 once
+    per step."""
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
     n = len(batches)
-    runs, losses = {}, {}
+    losses = {}
     for pipelined in (False, True):
         module, anchors = build_model(cfg.model, device="cuda", train=True,
                                       generator=torch.Generator().manual_seed(0))
@@ -1951,55 +1456,21 @@ def phase_pipelined(torch, train, build_model, matching_cuda, cfg, batches, tag)
             for nxt in batches[1:] + batches[:1]:
                 state, carry, m = pstep(state, carry, nxt)
                 out.append(float(m["loss"]))
-            runs[True] = (state, pstep, carry, module)
         else:
             step = train.make_train_step(module, anchors, cfg)
             out = [float(step(state, b)[1]["loss"]) for b in batches]
-            runs[False] = (state, step, None, module)
         if matching_cuda.launches - before != n:
             raise RuntimeError(f"K2 ran {matching_cuda.launches - before} times in {n} steps")
         losses[pipelined] = out
+        del module, state
     rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses[True], losses[False]))
     log(f"[pipelined] {tag}, prime + {n} steps: losses {losses[True]}; plain step on the same "
         f"batches and generator {losses[False]}; worst relative difference {rel:.2e} "
         f"(bound 1e-6); K2 launches {n} per run")
     if not rel <= 1e-6:
         raise RuntimeError(f"pipelined losses differ from the plain step's: {rel}")
-
-    holder = {"carry": runs[True][2]}
-
-    def steps(pipelined):
-        state, fn, _, _ = runs[pipelined]
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        events[0].record()
-        for i, e in enumerate(events[1:]):
-            if pipelined:
-                _, holder["carry"], _ = fn(state, holder["carry"], batches[i % n])
-            else:
-                fn(state, batches[i % n])
-            e.record()
-        torch.cuda.synchronize()
-        return [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
-
-    t = in_turns((True, False), steps, rounds=4)
-    state, pstep = runs[True][0], runs[True][1]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(3):
-            _, holder["carry"], _ = pstep(state, holder["carry"], batches[i % n])
-        torch.cuda.synchronize()
-    share, streams, side_n, side_ms = overlap_share(kineto_intervals(torch, prof)[0])
-    log(f"[pipelined] {tag}: step time in turns (4 rounds of 4) pipelined {spread(t[True])}, "
-        f"plain {spread(t[False])} ({nvidia_smi_line()}); {streams} streams; the side "
-        f"stream's {side_n} activities ({side_ms:.3f} ms over 3 steps) ran beside the main "
-        f"stream's kernels for {share:.3f} of their time")
-    del runs, holder
     torch.cuda.empty_cache()
-    return {f"pipelined_{tag}_step_median_ms": float(np.median(t[True])),
-            f"pipelined_{tag}_step_p90_ms": float(np.percentile(t[True], 90)),
-            f"plain_{tag}_step_median_ms": float(np.median(t[False])),
-            f"plain_{tag}_step_p90_ms": float(np.percentile(t[False], 90)),
-            f"pipelined_{tag}_side_overlap_share": share,
-            f"pipelined_{tag}_loss_max_rel_diff": rel}
+    return {f"pipelined_{tag}_loss_max_rel_diff": rel}
 
 
 class Tee:
@@ -2043,64 +1514,11 @@ APP_TRAIN = "synthetic://train?n=256&max_objects=8&aspect_std=0.6"
 APP_VAL = "synthetic://val?n=64&max_objects=8&aspect_std=0.6"
 
 
-def cli_loop(torch, train, cli_train, argv, timed, profiled):
-    """train_cli ``argv`` in this process, every step stamped on the host
-    clock and steps ``profiled[0]`` to ``profiled[1] - 1`` (1-based)
-    launched under torch.profiler. Returns (its output, wall s, the median
-    ms between the steps ``timed[0]`` to ``timed[1]``, and the card's busy
-    ms, window ms and idle share over the profiled steps, on the card's
-    own timeline: the host runs up to METRIC_LAG steps ahead). The seconds
-    before the first step and after the last are logged."""
-    from torch.profiler import ProfilerActivity, profile
-
-    stamps, prof_box = [], {}
-    real = train.make_train_step
-
-    def timed_step_factory(*a, **k):
-        step = real(*a, **k)
-
-        def timed_step(state, batch):
-            i = len(stamps) + 1
-            if i == profiled[0]:
-                prof_box["p"] = profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA])
-                prof_box["p"].__enter__()
-            if i == profiled[1]:
-                prof_box["p"].__exit__(None, None, None)
-            stamps.append(time.perf_counter())
-            with torch.profiler.record_function("cli_step"):
-                return step(state, batch)
-
-        return timed_step
-
-    train.make_train_step = timed_step_factory
-    try:
-        t0 = time.perf_counter()
-        text = run_cli(cli_train.main, argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        train.make_train_step = real
-    interval = float(np.median(np.diff(stamps[timed[0] - 1:timed[1]]))) * 1e3
-    dev, host = kineto_intervals(torch, prof_box["p"])
-    steps_seen = sum(1 for name, _, _ in host if name == "cli_step")
-    if steps_seen != profiled[1] - profiled[0] or not dev:
-        raise RuntimeError(f"the profiled window holds {steps_seen} steps, {len(dev)} "
-                           "device activities")
-    lo, hi = min(s for _, s, _ in dev), max(e for _, _, e in dev)
-    busy = union_length([(s, e) for _, s, e in dev])
-    log(f"[cli] train_cli took {stamps[0] - t0:.2f} s to its first step and "
-        f"{t0 + wall - stamps[-1]:.2f} s after its last was launched")
-    return text, wall, interval, busy / 1e6, (hi - lo) / 1e6, 1.0 - busy / (hi - lo)
-
-
-def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, workdir):
+def phase_app(torch, cli_train, nms_cuda, matching_cuda, reset_counts, workdir):
     """train_cli on config #3 (SSD-512 b32 float32, shape_weight 0.3) on a
     512 px synthetic split: 24 steps, a val eval every 12 on 2 batches. K2
-    once per step, K1 once per eval batch, finite losses; the loop's ms per
-    step (host clock), its idle share on the card (torch.profiler over steps
-    17-20 launched under torch.profiler, on the card's own timeline) and the
-    Loader's ms per batch."""
+    once per step, K1 once per eval batch, finite losses. Returns (the
+    checkpoint folder, K1 launches, K2 launches)."""
     steps, every, val_batches, workers = 24, 12, 2, 8
     ckpt = os.path.join(workdir, "app_ckpt")
     argv = ["--config", "config3_ssd512_voc_train", "--data-root", APP_TRAIN,
@@ -2108,10 +1526,8 @@ def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, wo
             "--val-batches", str(val_batches), "--log-every", "4", "--workers", str(workers),
             "--checkpoint-dir", ckpt]
     reset_counts()
-    # the loop's step interval on the host clock over steps 5-12 (the eval
-    # at step 12 and the profiled steps 17-20 left out)
-    text, wall, interval, busy, window, idle = cli_loop(torch, train, cli_train, argv,
-                                                        (5, 12), (17, 21))
+    text = run_cli(cli_train.main, argv)
+    torch.cuda.synchronize()
     k2, k1 = matching_cuda.launches, nms_cuda.launches
     losses = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines()
               if " loss=" in line]
@@ -2126,35 +1542,9 @@ def phase_app(torch, train, cli_train, nms_cuda, matching_cuda, reset_counts, wo
         raise RuntimeError(f"train_cli on config #3 did not finish cleanly: {text[-500:]}")
     saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
     log(f"[app] train_cli config #3 (SSD-512 b32 fp32, shape_weight 0.3), {steps} steps, eval "
-        f"every {every} on {val_batches} val batches ({nvidia_smi_line()}): wall {wall:.1f} s; "
-        f"losses {losses}; K2 launches {k2} (one per step), K1 {k1} (one per eval batch); "
-        f"checkpoints {saved}; voc-mAP {maps}")
-    log(f"[app] the loop: {interval:.3f} ms per step over steps 5-12 (host clock), "
-        f"{32e3 / interval:.1f} images/s; while steps 17-20 were launched under "
-        f"torch.profiler the card was busy {busy:.3f} ms of the {window:.3f} "
-        f"ms from its first activity to its last: idle share {idle:.3f}")
-
-    # the host Loader alone on the same split, with the same threads
-    from shape_based_object_detection_torch import config as config_lib
-    from shape_based_object_detection_torch.data.pipeline import Loader
-
-    cfg = config_lib.get_config("config3_ssd512_voc_train")
-    ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_TRAIN, split="train",
-                                                  ann_file=""))
-    loader = Loader(ds, 32, cfg.data.max_boxes, workers=workers)
-    it, per = loader.batches(0), []
-    next(it)
-    for _ in range(5):
-        t = time.perf_counter()
-        next(it)
-        per.append((time.perf_counter() - t) * 1e3)
-    loader.close()
-    log(f"[app] host Loader, b32 of the 512 px synthetic split, {workers} threads: "
-        f"{spread(np.array(per))} per batch (host clock)")
-    return ckpt, k1, k2, {"app_step_interval_ms": interval, "app_images_per_s": 32e3 / interval,
-                          "app_device_busy_ms": busy,
-                          "app_device_window_ms": window, "app_idle_share": idle,
-                          "app_wall_s": wall, "app_loader_batch_ms": float(np.median(per))}
+        f"every {every} on {val_batches} val batches: losses {losses}; K2 launches {k2} (one "
+        f"per step), K1 {k1} (one per eval batch); checkpoints {saved}; voc-mAP {maps}")
+    return ckpt, k1, k2
 
 
 def phase_preempt(torch, cli_train, workdir):
@@ -2219,7 +1609,7 @@ def phase_ckpt_round_trip(torch, config, train, build_model, workdir):
     """A checkpoint round trip on the card, SSD-512 (config #3) and
     R50-FPN-512 with train_bn, with a bf16 momentum and an EMA, after 2
     steps: parameters, buffers, momentum, EMA, step and the CUDA generator
-    state bit-equal; the save's blocking time, the write's and the size."""
+    state bit-equal; the file's size."""
     from shape_based_object_detection_torch.checkpoint import CheckpointManager
 
     results = {}
@@ -2240,24 +1630,14 @@ def phase_ckpt_round_trip(torch, config, train, build_model, workdir):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         mgr = CheckpointManager(os.path.join(workdir, f"rt_{tag}"), keep=1)
-        t = time.perf_counter()
-        mgr.save(state)
-        block = time.perf_counter() - t
-        mgr.wait()
-        write = time.perf_counter() - t - block
-        t = time.perf_counter()
         mgr.save(state, 3)
-        block2 = time.perf_counter() - t
         mgr.wait()
-        path = os.path.join(workdir, f"rt_{tag}", "3", "state.pt")
-        size = os.path.getsize(path)
+        size = os.path.getsize(os.path.join(workdir, f"rt_{tag}", "3", "state.pt"))
         other, _ = build_model(cfg.model, device="cuda", train=True,
                                generator=torch.Generator().manual_seed(5))
-        t = time.perf_counter()
         restored = mgr.restore_step(3, train.create_train_state(
             other, cfg, generator=torch.Generator(device="cuda").manual_seed(99)))
         torch.cuda.synchronize()
-        restore = time.perf_counter() - t
         same = (all(torch.equal(a, b) for a, b in zip(module.state_dict().values(),
                                                        other.state_dict().values()))
                 and all(torch.equal(a, b) for a, b in zip(state.opt_state.trace,
@@ -2271,16 +1651,11 @@ def phase_ckpt_round_trip(torch, config, train, build_model, workdir):
         n_bufs = len(list(module.buffers()))
         log(f"[resume] {tag} checkpoint round trip on the card ({n_params} parameters, "
             f"{n_bufs} buffers, bf16 momentum, EMA; step 2; the CUDA generator's state): "
-            f"bit-equal={same}; save blocks {block * 1e3:.1f} ms, then {block2 * 1e3:.1f} ms "
-            f"when saved again, the write takes {write:.2f} s more on its thread, "
-            f"{size / 2**20:.1f} MiB; restore {restore:.2f} s ({nvidia_smi_line()})")
+            f"bit-equal={same}; {size / 2**20:.1f} MiB")
         if not same:
             raise RuntimeError(f"{tag} checkpoint round trip is not bit-equal")
         mgr.close()
-        results.update({f"ckpt_{tag}_save_block_ms": block * 1e3,
-                        f"ckpt_{tag}_save_again_block_ms": block2 * 1e3,
-                        f"ckpt_{tag}_write_s": write, f"ckpt_{tag}_mib": size / 2**20,
-                        f"ckpt_{tag}_restore_s": restore})
+        results[f"ckpt_{tag}_mib"] = size / 2**20
         del module, other, state, restored
         torch.cuda.empty_cache()
     return results
@@ -2351,8 +1726,8 @@ def phase_eval(torch, config, train, build_model, cli_train, cli_eval, nms, nms_
     0) against an in-process Evaluator fed by make_eval_step: the records
     eval_cli fed its Evaluator equal element by element, and the metrics;
     K1 bit-equal on the eval candidates and its time there; the C++ and
-    numpy matchers on jittered ground truth; eval_cli on config #2 (R50
-    b32, threshold 0)."""
+    numpy matchers equal on jittered ground truth; eval_cli on config #2
+    (R50 b32, threshold 0)."""
     import json as json_lib
 
     from shape_based_object_detection_torch import eval as eval_pkg
@@ -2395,9 +1770,8 @@ def phase_eval(torch, config, train, build_model, cli_train, cli_eval, nms, nms_
     batches = -(-len(ds) // cfg.data.batch_size)
     # K1 on the eval path's candidates, bit for bit, and its time there
     b = next(loader.batches_padded())[0]
-    with torch.inference_mode():
-        x = detection.image_lib.normalize_images(torch.from_numpy(b.images).cuda())
-        cands = detection.select_candidates(*module(x.permute(0, 3, 1, 2)), anchors, cfg.model)
+    cands = path_candidates(torch, detection, module, anchors, cfg.model,
+                            torch.from_numpy(b.images).cuda())
     boxes, scores, cls, valid = cands
     det = cfg.model.detect
     shifted = nms.class_offset_boxes(boxes, cls)
@@ -2419,18 +1793,14 @@ def phase_eval(torch, config, train, build_model, cli_train, cli_eval, nms, nms_
 
     # the matchers on jittered ground truth: equal and far from 0
     dets = jittered_records(ev, 22)
-    scores_m = {}
-    for matcher in ("native", "numpy"):
-        t = time.perf_counter()
-        scores_m[matcher] = (voc_map(dets, ev.ground_truth, matcher=matcher)["mAP"],
-                             coco_map(dets, ev.ground_truth, area_scale=512.0,
-                                      matcher=matcher)["mAP"])
-        scores_m[matcher] += (time.perf_counter() - t,)
-    agree = scores_m["native"][:2] == scores_m["numpy"][:2] and min(scores_m["native"][:2]) > 0
+    scores_m = {matcher: (voc_map(dets, ev.ground_truth, matcher=matcher)["mAP"],
+                          coco_map(dets, ev.ground_truth, area_scale=512.0,
+                                   matcher=matcher)["mAP"])
+                for matcher in ("native", "numpy")}
+    agree = scores_m["native"] == scores_m["numpy"] and min(scores_m["native"]) > 0
     log(f"[eval] with jittered ground truth as detections ({len(dets)} images): voc mAP "
         f"{scores_m['native'][0]:.6f}, coco mAP {scores_m['native'][1]:.6f}; C++ and numpy "
-        f"matchers equal and non-zero: {agree} (voc+coco host seconds: C++ "
-        f"{scores_m['native'][2]:.3f}, numpy {scores_m['numpy'][2]:.3f})")
+        f"matchers equal and non-zero: {agree}")
     if not agree:
         raise RuntimeError(f"matchers disagree or score 0: {scores_m}")
     del module, state
@@ -2450,15 +1820,12 @@ def phase_eval(torch, config, train, build_model, cli_train, cli_eval, nms, nms_
     return timing, launches["voc"], k1_r50, {
         "eval_voc_map": got["voc"]["mAP"], "eval_coco_map": got["coco"]["mAP"],
         "eval_jittered_voc_map": scores_m["native"][0],
-        "eval_jittered_coco_map": scores_m["native"][1],
-        "eval_native_matcher_s": scores_m["native"][2],
-        "eval_numpy_matcher_s": scores_m["numpy"][2]}
+        "eval_jittered_coco_map": scores_m["native"][1]}
 
 
 def phase_loader(torch):
-    """Loader.device_batches on the card: batches bit-equal to the host
-    batches, staged pinned; one b32 batch's H2D time against the card's
-    pinned H2D rate measured here."""
+    """Loader.device_batches on the card at b32 (512 px, 100 boxes, 8
+    threads): batches bit-equal to the host batches, staged pinned."""
     from shape_based_object_detection_torch.data.pipeline import Loader, pin_batch
     from shape_based_object_detection_torch.data.synthetic import SyntheticDetection
 
@@ -2468,24 +1835,12 @@ def phase_loader(torch):
     dev = list(loader.device_batches(0))
     equal = len(host) == len(dev) == 3 and all(
         np.array_equal(a, b.cpu().numpy()) for h, d in zip(host, dev) for a, b in zip(h, d))
-    pinned = pin_batch(host[0])
-    is_pinned = all(t.is_pinned() for t in pinned)
-    nbytes = sum(t.numel() * t.element_size() for t in pinned)
-    h2d = cuda_times_ms(lambda: [t.to("cuda", non_blocking=True) for t in pinned], iters=20)
-    big = torch.empty(512 * 2**20, dtype=torch.uint8, pin_memory=True)
-    rate_ms = float(np.median(cuda_times_ms(lambda: big.to("cuda", non_blocking=True),
-                                            iters=5)))
-    rate = big.numel() / rate_ms / 1e6  # GB/s
-    bound = nbytes / rate / 1e6
+    is_pinned = all(t.is_pinned() for t in pin_batch(host[0]))
     loader.close()
     log(f"[loader] device_batches: 3 b32 batches bit-equal to the host batches: {equal}; "
-        f"staged pinned: {is_pinned}; H2D of one batch ({nbytes} bytes, pinned, non_blocking) "
-        f"{spread(h2d)}; the card's pinned H2D rate {rate:.2f} GB/s (512 MiB copy, "
-        f"{rate_ms:.3f} ms), so a batch's bound is {bound:.3f} ms ({nvidia_smi_line()})")
+        f"staged pinned: {is_pinned}")
     if not (equal and is_pinned):
         raise RuntimeError(f"device_batches: equal {equal}, pinned {is_pinned}")
-    return {"h2d_b32_ms": float(np.median(h2d)), "h2d_b32_bytes": nbytes,
-            "pinned_h2d_gb_per_s": rate, "h2d_b32_bound_ms": bound}
 
 
 def phase_cli_match_timing(torch, config, matching, matching_cuda, cli_train):
@@ -2599,17 +1954,16 @@ def soft_card_vs_cpu(torch, detection, cands, cfg, name):
         f"{got.valid.sum(1).tolist()[:4]}...")
     if not same or err > 1e-6:
         raise RuntimeError(f"soft-NMS on the card differs from the CPU on {name}")
-    return soft
 
 
 def phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda, reset_counts):
     """hflip detect card vs CPU at b1 in float32; K1 on the hflip merges (R50
-    at b16, SSD300 at b1), bit-equal to its plain version, and once per TTA
-    batch; the "matrix" backend name runs K1, soft-NMS card vs CPU; K1 and
-    soft-NMS times on the R50 candidates."""
+    at b16, SSD300 at b1), bit-equal to its plain version, once per TTA
+    batch, and timed; the "matrix" backend name runs K1, soft-NMS card vs
+    CPU. Returns K1's entries."""
     from shape_based_object_detection_torch.detection import make_detect_fn
 
-    out, k1 = {}, {}
+    k1 = {}
     cpu_module, cpu_anchors, cfg = tta_model(torch, config, build_model, "float32",
                                              widen=True)
     module, anchors = build_model(cfg, device="cuda")
@@ -2644,23 +1998,9 @@ def phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda, reset_
     timing = nms_timing(nms, nms_cuda, cands, det, "the R50 hflip merge (unsorted)")
     k1.update({f"tta_{k}": v for k, v in timing.items()})
 
-    # the matrix backend name and soft-NMS on the same merge, and on the
-    # plain path's (16, 1000, 100) candidates (the merge's first half)
-    plain = tuple(t[:, :det.pre_nms_top_k] for t in cands)
+    # the matrix backend name and soft-NMS on the same merge
     matrix_route_is_k1(torch, detection, nms_cuda, cands, cfg, "the R50 hflip merge at b16")
-    soft = soft_card_vs_cpu(torch, detection, cands, cfg, "the R50 hflip merge at b16")
-    for name, c in (("(16, 1000, 100)", plain), ("(16, 2000, 100)", cands)):
-        times = {
-            "k1": cuda_times_ms(lambda: detection.run_nms(*c, cfg, backend="cuda"), iters=50),
-            "soft": cuda_times_ms(lambda: detection.run_nms(*c, soft), iters=10, warmup=2),
-        }
-        med = {k: float(np.median(t)) for k, t in times.items()}
-        out.update({f"nms_{k}_{c[1].shape[1]}_median_ms": v for k, v in med.items()})
-        log(f"[timing] class-aware NMS on {name} R50 candidates ({nvidia_smi_line()}), "
-            f"CUDA events: K1 (run_nms, class offset and gather included) "
-            f"{spread(times['k1'])}; soft-NMS (sigma 0.5) {spread(times['soft'])}; "
-            f"soft / K1 {med['soft'] / med['k1']:.1f}x")
-
+    soft_card_vs_cpu(torch, detection, cands, cfg, "the R50 hflip merge at b16")
     del module, detect
 
     # SSD300 (config #1, float32) hflip TTA at b1: (1, 800, 200)
@@ -2680,7 +2020,7 @@ def phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda, reset_
     k1["ssd_tta_launches"] = nms_cuda.launches
     if nms_cuda.launches != 1:
         raise RuntimeError("SSD300 hflip TTA did not launch the NMS kernel once")
-    return out, k1
+    return k1
 
 
 def phase_serve_large_merges(torch, config, build_model, detection, nms, nms_cuda,
@@ -2691,10 +2031,10 @@ def phase_serve_large_merges(torch, config, build_model, detection, nms, nms_cud
     its plain version on each merge and once per TTA batch, its time (CUDA
     events, profiler device time) beside its bound and scratch; then the
     (16, 1000, 100) serving row, the same model's plain detect candidates on
-    the bitmask route, timed again in this run."""
+    the bitmask route, timed again in this run. Returns K1's entries."""
     from shape_based_object_detection_torch.detection import make_detect_fn
 
-    out, k1 = {}, {}
+    k1 = {}
     base = serving_config(config, "bfloat16").model
     module, anchors = build_model(base, device="cuda",
                                   generator=torch.Generator().manual_seed(1))
@@ -2721,32 +2061,24 @@ def phase_serve_large_merges(torch, config, build_model, detection, nms, nms_cud
         k1[f"{tag}_peak_alloc_bytes"] = k1_peak_bytes(
             torch, nms_cuda, nms.class_offset_boxes(cands[0], cands[2]), cands[1], cands[3],
             det.nms_iou_threshold, det.max_detections)
-        times = cuda_times_ms(lambda: detect(images), iters=10)
-        out[f"detect_hflip_top{k}_b16_bf16_median_ms"] = float(np.median(times))
-        log(f"[timing] hflip TTA detect b16 bf16 at pre_nms_top_k {k} ({2 * k} candidates "
-            f"into K1's {nms_cuda.route(2 * k)} route), CUDA events: {spread(times)}; K1 "
-            f"launches per batch {k1[f'{tag}_launches']}, scratch "
+        log(f"[serve] hflip TTA detect b16 bf16 at pre_nms_top_k {k} ({2 * k} candidates "
+            f"into K1's {nms_cuda.route(2 * k)} route): K1 launches per batch "
+            f"{k1[f'{tag}_launches']}, scratch "
             f"{nms_cuda.scratch_bytes(16, 2 * k, det.max_detections)} bytes, peak allocation "
             f"of one K1 call {k1[f'{tag}_peak_alloc_bytes']} bytes")
-    with torch.inference_mode():
-        x = detection.image_lib.normalize_images(images).permute(0, 3, 1, 2)
-        cands = detection.select_candidates(*module(x), anchors, base)
+    cands = path_candidates(torch, detection, module, anchors, base, images)
     timing = nms_timing(nms, nms_cuda, cands, base.detect,
                         "the serving path's candidates (route bitmask), beside the merges")
     k1.update({f"serve_row_{key}": v for key, v in timing.items()})
-    return out, k1
+    return k1
 
 
-def phase_serve_multiscale(torch, config, build_model, serving, nms, nms_cuda, reset_counts):
+def phase_serve_multiscale(torch, config, build_model, nms, nms_cuda, reset_counts):
     """R50-FPN-512 at b16 (random weights from seed 0): the 2-scale batch
     detector launches K1 S + 1 times per batch, and K1 is bit-equal on its
-    merge (float32, whose scores are not tied as bf16's are); then, in the
-    serving config (bf16), detect with and without hflip TTA and the
-    2-scale detector, timed by CUDA events. Returns (results, K1
-    entries)."""
-    from shape_based_object_detection_torch.detection import (
-        MultiScaleBatchDetector, make_detect_fn,
-    )
+    merge (float32, whose scores are not tied as bf16's are) and timed
+    there. Returns K1's entries."""
+    from shape_based_object_detection_torch.detection import MultiScaleBatchDetector
     from shape_based_object_detection_torch.utils.image import resize_images
 
     k1 = {}
@@ -2777,26 +2109,7 @@ def phase_serve_multiscale(torch, config, build_model, serving, nms, nms_cuda, r
                                          f"the 2-scale merge {scales} at b16")
     timing = nms_timing(nms, nms_cuda, ms_cands, det, "the 2-scale merge")
     k1.update({f"multiscale_{k}": v for k, v in timing.items()})
-    del ms, parts, module
-
-    cfg = serving_config(config, "bfloat16").model
-    module, anchors = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    tta = dataclasses.replace(cfg, detect=dataclasses.replace(cfg.detect, tta_hflip=True))
-    runs = {
-        "detect": make_detect_fn(module, anchors, cfg, device="cuda"),
-        "detect_tta_hflip": make_detect_fn(module, anchors, tta, device="cuda"),
-        "multiscale_2_scales": MultiScaleBatchDetector(cfg, module, scales, device="cuda"),
-    }
-    out = {}
-    for name, fn in runs.items():
-        times = cuda_times_ms(lambda: fn(images), iters=20)
-        ms = float(np.median(times))
-        out[f"serve_{name}_b16_bf16_median_ms"] = ms
-        log(f"[timing] {name} b16 bf16 ({nvidia_smi_line()}): {spread(times)} per batch, "
-            f"{16e3 / ms:.1f} images/s at the median")
-    ratio = out["serve_detect_tta_hflip_b16_bf16_median_ms"] / out["serve_detect_b16_bf16_median_ms"]
-    log(f"[timing] hflip TTA / plain detect at b16 bf16: {ratio:.3f}x")
-    return out, k1
+    return k1
 
 
 SERVER_REQUESTS = 512
@@ -2847,30 +2160,26 @@ def load_client(port, folder, clients, out):
     """The server phase's load, in a process of its own so that the
     clients share no interpreter with the server: POST every body in
     ``folder`` (by file name) from ``clients`` threads, each sending its
-    share one request after another; write the answers, each request's
-    latency and the wall time as JSON to ``out``. Run as ``python3 -c
-    "import sys, chip_smoke; chip_smoke.load_client(*sys.argv[1:])" PORT
-    FOLDER CLIENTS OUT`` from the repo root."""
+    share one request after another; write the answers as JSON to ``out``.
+    Run as ``python3 -c "import sys, chip_smoke;
+    chip_smoke.load_client(*sys.argv[1:])" PORT FOLDER CLIENTS OUT`` from
+    the repo root."""
     names = sorted(os.listdir(folder))
     bodies = []
     for name in names:
         with open(os.path.join(folder, name), "rb") as f:
             bodies.append(f.read())
     n, clients = len(bodies), int(clients)
-    answers, latency = [None] * n, [0.0] * n
+    answers = [None] * n
 
     def client(c):
         for i in range(c, n, clients):
-            t0 = time.perf_counter()
             answers[i] = post(int(port), bodies[i])
-            latency[i] = time.perf_counter() - t0
 
-    t = time.perf_counter()
     with ThreadPoolExecutor(clients) as pool:
         list(pool.map(client, range(clients)))
-    wall = time.perf_counter() - t
     with open(out, "w") as f:
-        json.dump({"answers": answers, "latency_s": latency, "wall_s": wall}, f)
+        json.dump(answers, f)
 
 
 def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
@@ -2878,9 +2187,8 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
     1-16, warmed up): 512 encoded images from 16 client threads in another
     process. Every answer equals Predictor.predict of the same decoded
     images in the same batch (boxes within 0.01 px, scores 1e-5: the JSON's
-    rounding); K1 once per batch; the server process's CPU time and the
-    share of the wall with a batch on the card during the load; then one
-    lone request, which rides the b1 bucket."""
+    rounding); K1 once per batch; then one lone request, which rides the b1
+    bucket. Returns K1's launches under the load."""
     import urllib.request
 
     from shape_based_object_detection_torch.server import DetectionServer
@@ -2890,9 +2198,7 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
     pred = serving.Predictor(cfg, batch_size=16, device="cuda",
                              bucket_sizes=serving.default_bucket_sizes(16),
                              generator=torch.Generator().manual_seed(0))
-    t = time.perf_counter()
     pred.warmup()
-    warm_s = time.perf_counter() - t
     n = SERVER_REQUESTS
     bodies, decoded = encoded_requests(n, 23)
     key = {img.shape[:2]: i for i, img in enumerate(decoded)}
@@ -2902,19 +2208,13 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
         with open(os.path.join(folder, f"{i:05d}"), "wb") as f:
             f.write(body)
     answers_path = os.path.join(workdir, "answers.json")
-    batches, spans, first = [], [], []
+    batches = []
     submit = pred.submit
 
     def recording(items):
-        """Which requests rode the batch, and CUDA events around its work."""
-        if not first:
-            first.extend([time.perf_counter(), time.process_time()])
+        """Which requests rode the batch."""
         batches.append([key[hw] for _, hw in items])
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         submit(items)
-        end.record()
-        spans.append((start, end))
 
     pred.submit = recording
     server = DetectionServer(pred, port=0, batch_window_ms=5.0, request_timeout_s=120.0)
@@ -2926,14 +2226,12 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
              str(server.port), folder, str(SERVER_CLIENTS), answers_path],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
         torch.cuda.synchronize()
-        load_wall, load_cpu = (time.perf_counter() - first[0], time.process_time() - first[1])
         if client.returncode != 0:
             raise RuntimeError(f"the load client failed: {client.stderr[-2000:]}")
         launches = nms_cuda.launches
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/stats", timeout=30) as r:
             stats = json.loads(r.read())
         served = list(batches)
-        busy_ms = sum(a.elapsed_time(b) for a, b in spans)
         # a lone request: the b1 bucket
         post(server.port, bodies[0])
         torch.cuda.synchronize()
@@ -2943,8 +2241,7 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
         server.close()
         pred.submit = submit
     with open(answers_path) as f:
-        load = json.load(f)
-    answers = load["answers"]
+        answers = json.load(f)
     if launches != stats["batches"] or len(served) != stats["batches"]:
         raise RuntimeError(f"nms_greedy launched {launches} times for {stats['batches']} "
                            f"served batches")
@@ -2969,33 +2266,14 @@ def phase_server(torch, config, serving, nms_cuda, reset_counts, workdir):
     if worst_box > 0.01 or worst_score > 1e-5:
         raise RuntimeError(f"served answers differ from predict: boxes {worst_box}, "
                            f"scores {worst_score}")
-    # Predictor.predict alone on the same decoded images, for comparison
-    t = time.perf_counter()
-    pred.predict(decoded)
-    predict_s = time.perf_counter() - t
-    lat = np.array(load["latency_s"]) * 1e3
-    sizes = sorted(len(b) for b in served)
-    out = {"server_requests": n, "server_requests_per_s": n / load["wall_s"],
-           **{f"server_p{q}_ms": float(np.percentile(lat, q)) for q in (50, 90, 99)},
-           "server_mean_batch_occupancy": stats["mean_batch_occupancy"],
-           "server_batches": stats["batches"], "server_warmup_s": warm_s,
-           "server_process_cpu_per_wall": load_cpu / load_wall,
-           "server_batch_on_card_share": busy_ms / 1e3 / load_wall,
-           "predict_images_per_s": n / predict_s}
-    log(f"[server] bf16 R50-FPN-512 Predictor b16, buckets {pred.bucket_sizes}, warmup "
-        f"{warm_s:.2f} s ({nvidia_smi_line()}): {n} requests (PNG/JPEG, 200-900 px) from "
-        f"{SERVER_CLIENTS} client threads in another process in {load['wall_s']:.3f} s = "
-        f"{out['server_requests_per_s']:.1f} requests/s, latency p50 "
-        f"{out['server_p50_ms']:.1f} ms, p90 {out['server_p90_ms']:.1f} ms, p99 "
-        f"{out['server_p99_ms']:.1f} ms; /stats {stats}; batch sizes {sizes}; during the "
-        f"load the server process used {out['server_process_cpu_per_wall']:.2f} CPU s per "
-        f"s and a batch was on the card {100 * out['server_batch_on_card_share']:.1f} % of "
-        f"the wall (CUDA events around each batch); nms_greedy launches {launches} = "
-        f"batches; every answer equal to Predictor.predict of the same batch (max |box "
-        f"diff| {worst_box:.4f} px, |score diff| {worst_score:.2e}); a lone request rode a "
-        f"batch of 1 (bucket {pred._bucket_for(1)}), 1 launch. Predictor.predict of the "
-        f"{n} decoded images: {out['predict_images_per_s']:.1f} images/s (host clock)")
-    return out, launches
+    log(f"[server] bf16 R50-FPN-512 Predictor b16, buckets {pred.bucket_sizes}: {n} requests "
+        f"(PNG/JPEG, 200-900 px) from {SERVER_CLIENTS} client threads in another process; "
+        f"{stats['batches']} batches of sizes {sorted(len(b) for b in served)}, "
+        f"{stats['batch_errors']} batch errors; nms_greedy launches "
+        f"{launches} = batches; every answer equal to Predictor.predict of the same batch "
+        f"(max |box diff| {worst_box:.4f} px, |score diff| {worst_score:.2e}); a lone request "
+        f"rode a batch of 1 (bucket {pred._bucket_for(1)}), 1 launch")
+    return launches
 
 
 def read_until(lines, prefix, timeout):
@@ -3012,7 +2290,8 @@ def read_until(lines, prefix, timeout):
 def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
     """detect_cli on SSD300 (config #1) with hflip and multi-scale TTA and
     --save-viz, in this process; serve_cli as a subprocess on a free port:
-    /healthz, one /detect, then SIGTERM."""
+    /healthz, one /detect, then SIGTERM. Returns detect_cli's K1
+    launches."""
     import io
 
     from PIL import Image
@@ -3022,34 +2301,31 @@ def phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir):
     Image.fromarray(decoded[0]).save(path)
     viz = os.path.join(workdir, "viz")
     reset_counts()
-    t = time.perf_counter()
     buf = io.StringIO()  # its 200 detections are not printed
     with contextlib.redirect_stdout(buf):
         cli_detect.main(["--config", "config1_ssd300_infer", "--image", path, "--tta-hflip",
                          "--tta-scales", "300", "--save-viz", viz, "--min-score", "0.0",
                          "--set", "model.detect.score_threshold=0.0"])
-    cli_s = time.perf_counter() - t
     torch.cuda.synchronize()
     dets = json.loads(buf.getvalue())
     drawn = np.asarray(Image.open(os.path.join(viz, "street_det.png")))
     launches = nms_cuda.launches
     log(f"[cli] detect_cli SSD300 --tta-hflip --tta-scales 300 --save-viz: {len(dets)} "
-        f"detections in {cli_s:.2f} s (model build included), viz {drawn.shape}, "
+        f"detections, viz {drawn.shape}, "
         f"nms_greedy launches {launches} (the hflip merge and the scale merge)")
     if not dets or drawn.shape != decoded[0].shape or launches != 2:
         raise RuntimeError("detect_cli with TTA did not run as expected")
 
-    ready_s = serve_cli_answers(
+    serve_cli_answers(
         ["--config", "config2_retinanet_r50_infer", "--batch-size", "4",
          "--set", "model.detect.score_threshold=0.0", "--set", "data.decode_backend=pil"],
         bodies[0], "config #2 (b4, buckets 1-4)")
-    return {"detect_cli_launches": launches, "serve_cli_ready_s": ready_s}
+    return launches
 
 
 def serve_cli_answers(args, body, name):
     """serve_cli with ``args`` as a subprocess on a free port: /healthz, one
-    /detect of ``body``, then SIGTERM, which must end it with exit 0.
-    Returns the seconds it took to be ready."""
+    /detect of ``body``, then SIGTERM, which must end it with exit 0."""
     import queue
     import signal
     import threading
@@ -3068,10 +2344,8 @@ def serve_cli_answers(args, body, name):
         lines.put(None)
 
     threading.Thread(target=read, daemon=True).start()
-    t = time.perf_counter()
     try:
         seen = read_until(lines, "serving on", 300)
-        ready_s = time.perf_counter() - t
         port = int(seen[-1].split("http://127.0.0.1:")[1].split("/")[0])
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
             health = r.read()
@@ -3083,13 +2357,12 @@ def serve_cli_answers(args, body, name):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    log(f"[cli] serve_cli {name} subprocess: ready in {ready_s:.1f} s "
+    log(f"[cli] serve_cli {name} subprocess: ready "
         f"('{seen[1] if len(seen) > 1 else seen[0]}'), /healthz {health!r}, /detect "
         f"{len(answer['detections'])} detections for a {answer['width']}x{answer['height']} "
         f"image, SIGTERM -> exit {rc}, '{seen[-1]}'")
     if health != b"ok" or not answer["detections"] or rc != 0:
         raise RuntimeError(f"serve_cli {name} did not serve and stop cleanly")
-    return ready_s
 
 
 # ---------------------------------------------------------------------------
@@ -3354,22 +2627,20 @@ def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts)
     static scales calibrated on 4 synthetic b16 batches; SSD300 config #1
     (fp32, b1) Predictors. K1 once per batch in every tier; the int8
     product bit-equal to its plain version at every full-int8 shape of R50
-    b16 and b1 and SSD300 b1; detect images/s and device ms per call; the
-    stage times of the full tiers; weight bytes on the card."""
+    b16 and b1 and SSD300 b1; the stage times of the full tiers' products;
+    weight bytes on the card."""
     cfg = serving_config(config, "bfloat16")
-    t = time.perf_counter()
     base = serving.Predictor(cfg, batch_size=16, device="cuda", bucket_sizes=(1, 16))
     calib = [smooth_images(torch, 60 + i, 16, 512) for i in range(4)]
     scales = quantize.calibrate_activation_scales(base.module, calib, cfg.data)
-    calib_s = time.perf_counter() - t
     log(f"[int8] calibrated {len(scales)} activation scales on 4 synthetic b16 batches "
-        f"(R50 bf16; model build included) in {calib_s:.2f} s")
+        f"(R50 bf16)")
     preds = {"float": base}
     for tier, mode, static in INT8_TIERS:
         preds[tier] = serving.Predictor(cfg, batch_size=16, device="cuda", bucket_sizes=(1, 16),
                                         quantize=mode,
                                         activation_scales=scales if static else None)
-    out, k1 = {"int8_calibrate_s": calib_s}, {}
+    out, k1 = {}, {}
     rng = np.random.default_rng(61)
     requests = [[rng.integers(0, 256, (int(rng.integers(200, 900)), int(rng.integers(200, 900)),
                                        3), dtype=np.uint8) for _ in range(n)] for n in (16, 1)]
@@ -3389,17 +2660,6 @@ def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts)
         log(f"[int8] R50 bf16 Predictor {tier}: requests of 16 and 1 answered, K1 launches "
             f"{nms_cuda.launches} for 2 batches, int8 products {quantize.launches}, weight "
             f"bytes on the card {wbytes}")
-        for b in (16, 1):
-            x = x16[:b]
-            times = cuda_times_ms(lambda: pred._detect(x), iters=20)
-            dev_ms, _ = device_ms_per_call(lambda: pred._detect(x), calls=5)
-            ms = float(np.median(times))
-            out[f"int8_r50_{tier}_b{b}_median_ms"] = ms
-            out[f"int8_r50_{tier}_b{b}_device_ms"] = dev_ms
-            log(f"[timing] R50 detect b{b} bf16 {tier}: {spread(times)}, {b * 1e3 / ms:.1f} "
-                f"images/s; device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms per call")
-    log(f"[int8] tiers served and timed ({time.perf_counter() - t:.1f} s since the group's "
-        "Predictors were started)")
     products = {}
     for tier in ("full_dynamic", "full_static"):
         for b in (16, 1):
@@ -3411,7 +2671,6 @@ def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts)
                 out[f"int8_r50_{tier}_b{b}_stages"] = int8_stage_times(
                     torch, quantize, cap, f"R50 b{b} bf16 {tier}")
             del cap
-    log(f"[int8] products checked and staged ({time.perf_counter() - t:.1f} s)")
     # the 2-scale batch detector in the static tier: S + 1 launches per batch
     ms = detection_multiscale(torch, base, scales)
     reset_counts()
@@ -3422,9 +2681,6 @@ def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts)
         f"{nms_cuda.launches} for 1 batch")
     if nms_cuda.launches != 3:
         raise RuntimeError("the 2-scale int8 detector did not launch K1 3 times")
-    times = cuda_times_ms(lambda: ms(x16), iters=10)
-    out["int8_multiscale_full_static_b16_median_ms"] = float(np.median(times))
-    log(f"[timing] 2-scale (512, 640) b16 bf16 full_static: {spread(times)}")
     del ms
 
     # SSD300, config #1 (fp32, b1)
@@ -3442,16 +2698,9 @@ def phase_int8_serving(torch, config, serving, quantize, nms_cuda, reset_counts)
             _, calls, _ = int8_product_check(torch, quantize, pred._detect, pred.module, s1,
                                              "SSD300 b1 fp32 full_dynamic")
             products["ssd300_b1_full_dynamic"] = calls
-            continue
-        times = cuda_times_ms(lambda: pred._detect(s1), iters=30)
-        dev_ms, _ = device_ms_per_call(lambda: pred._detect(s1), calls=5)
-        ms_ = float(np.median(times))
-        out[f"int8_ssd300_{tier}_b1_median_ms"] = ms_
-        out[f"int8_ssd300_{tier}_b1_device_ms"] = dev_ms
-        out[f"int8_ssd300_{tier}_weight_bytes"] = sum(
-            t.nbytes for t in pred.module.state_dict().values())
-        log(f"[timing] SSD300 detect b1 fp32 {tier}: {spread(times)}, {1e3 / ms_:.1f} images/s; "
-            f"device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms per call")
+        else:
+            out[f"int8_ssd300_{tier}_weight_bytes"] = sum(
+                t.nbytes for t in pred.module.state_dict().values())
     out["int8_products_per_forward"] = products
     return out, k1, preds, scales
 
@@ -3467,7 +2716,7 @@ def detection_multiscale(torch, base, scales):
 def artifact_client(folder):
     """Loads each artifact of ``folder`` with the port alone, in a fresh
     process, on the card; runs it once on its batch; writes the detections
-    (``<name>_out.npz``), and the load seconds and K1 launches of the call
+    (``<name>_out.npz``), and the K1 launches of the call
     (``client.json``). Run as ``python3 -c "import sys, chip_smoke;
     chip_smoke.artifact_client(sys.argv[1])" FOLDER`` from the repo root."""
     import torch
@@ -3478,14 +2727,12 @@ def artifact_client(folder):
     report = {}
     for name, batch in (("float", "batch16"), ("full_static", "batch16"),
                         ("tiny_cpu", "tiny_batch")):
-        t = time.perf_counter()
         model = load_artifact(os.path.join(folder, f"{name}.sbdx"))
-        load_s = time.perf_counter() - t
         images = np.load(os.path.join(folder, f"{batch}.npy"))
         nms_cuda.launches = 0
         det = model(images)
         torch.cuda.synchronize()
-        report[name] = {"load_s": load_s, "launches": nms_cuda.launches,
+        report[name] = {"launches": nms_cuda.launches,
                         "exported_on": model.header["device"], "runs_on": str(model.device)}
         np.savez(os.path.join(folder, f"{name}_out.npz"),
                  **{k: getattr(det, k).cpu().numpy() for k in det._fields})
@@ -3508,19 +2755,14 @@ def int8_export_artifacts(torch, config, export, detection, build_model, preds, 
     live = {}
     for name, kw in (("float", {}), ("full_static", dict(
             quantize=True, int8_activations=True, activation_scales=scales))):
-        t = time.perf_counter()
         blob = export.export_detect(base.module, base.anchors, base.cfg.model, base.cfg.data,
                                     16, "cuda", **kw)
-        out[f"artifact_{name}_export_s"] = time.perf_counter() - t
         out[f"artifact_{name}_bytes"] = len(blob)
         export.save_artifact(blob, os.path.join(folder, f"{name}.sbdx"))
         live[name] = preds[name]._detect(x16)
-        log(f"[artifact] exported R50 bf16 b16 {name} on the card in "
-            f"{out[f'artifact_{name}_export_s']:.2f} s: {len(blob)} bytes")
+        log(f"[artifact] exported R50 bf16 b16 {name} on the card: {len(blob)} bytes")
     tiny = config.resolve_config("tiny_ssd", ["model.detect.score_threshold=0.0"])
-    t = time.perf_counter()
     blob = export.export_from_config(tiny, batch_size=1, device="cpu")
-    out["artifact_tiny_cpu_export_s"] = time.perf_counter() - t
     export.save_artifact(blob, os.path.join(folder, "tiny_cpu.sbdx"))
     tiny_batch = np.random.default_rng(65).integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
     np.save(os.path.join(folder, "tiny_batch.npy"), tiny_batch)
@@ -3556,14 +2798,13 @@ def int8_check_artifacts(client, folder, live):
         same = (np.array_equal(got["labels"], want["labels"])
                 and np.array_equal(got["valid"], want["valid"]))
         err = max(float(np.abs(got[k] - want[k]).max()) for k in ("boxes", "scores"))
-        log(f"[artifact] {name}: reloaded in a fresh process in {report[name]['load_s']:.2f} s "
+        log(f"[artifact] {name}: reloaded in a fresh process "
             f"(exported on {report[name]['exported_on']}, runs on {report[name]['runs_on']}); "
             f"labels and valid equal={same}, boxes and scores max |err| {err:.3e} against the "
             f"live Predictor ({int(want['valid'].sum())} detections); K1 launches "
             f"{report[name]['launches']} for 1 call")
         if not same or err > 1e-5 or report[name]["launches"] != 1:
             raise RuntimeError(f"the reloaded {name} artifact differs from the live Predictor")
-        out[f"artifact_{name}_load_s"] = report[name]["load_s"]
         out[f"artifact_{name}_max_abs_err"] = err
     out["launches"] = {name: r["launches"] for name, r in report.items()}
     got, want = np.load(os.path.join(folder, "tiny_cpu_out.npz")), live["tiny_cpu"]
@@ -3571,7 +2812,7 @@ def int8_check_artifacts(client, folder, live):
     n = matched(tuple(got[k][0][vg] for k in ("boxes", "scores", "labels")),
                 tuple(getattr(want, k)[0].numpy()[vw] for k in ("boxes", "scores", "labels")))
     log(f"[artifact] tiny SSD exported on the CPU, moved to {report['tiny_cpu']['runs_on']} at "
-        f"load in {report['tiny_cpu']['load_s']:.2f} s: K1 launches "
+        f"load: K1 launches "
         f"{report['tiny_cpu']['launches']}, {n} detections matched the CPU's detect (label, "
         "IoU >= 0.99, |dscore| <= 1e-3)")
     if report["tiny_cpu"]["launches"] != 1 or n == 0:
@@ -3579,10 +2820,9 @@ def int8_check_artifacts(client, folder, live):
     return out
 
 
-def int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, preds, folder):
-    """ArtifactPredictor.predict against Predictor.predict on 16 images of
-    200-900 px, in turns (host clock), each artifact once through K1."""
-    out = {}
+def int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, folder):
+    """ArtifactPredictor.predict on 16 images of 200-900 px for each
+    artifact: one K1 launch each."""
     rng = np.random.default_rng(66)
     request = [rng.integers(0, 256, (int(rng.integers(200, 900)), int(rng.integers(200, 900)),
                                      3), dtype=np.uint8) for _ in range(16)]
@@ -3593,42 +2833,24 @@ def int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, preds, fold
         torch.cuda.synchronize()
         if nms_cuda.launches != 1:
             raise RuntimeError(f"ArtifactPredictor {name}: K1 ran {nms_cuda.launches} times")
-        walls = {"predictor": [], "artifact": []}
-        for order in (("predictor", "artifact"), ("artifact", "predictor")) * 3:
-            for who in order:
-                p = preds[name] if who == "predictor" else ap
-                t = time.perf_counter()
-                p.predict(request)
-                walls[who].append(time.perf_counter() - t)
-        for who, w in walls.items():
-            out[f"{who}_{name}_predict_16_images_per_s"] = 16.0 / float(np.median(w))
-        log(f"[artifact] {name} predict of 16 images of 200-900 px (host clock, medians of 6 "
-            f"in turns): ArtifactPredictor "
-            f"{out[f'artifact_{name}_predict_16_images_per_s']:.1f} images/s, Predictor "
-            f"{out[f'predictor_{name}_predict_16_images_per_s']:.1f}")
-        del ap
-    return out
+        log(f"[artifact] ArtifactPredictor {name}: a request of 16 images of 200-900 px, K1 "
+            "launches 1")
 
 
 def phase_int8(torch, config, serving, detection, build_model, nms_cuda, reset_counts,
                workdir):
     """Group int8, in order: the tiers' full-width forwards card vs CPU; the
-    bf16 Predictors in every tier (K1 gates, the int8 product gates,
-    times); the artifacts exported, then read back in a fresh process while
-    serve_cli serves the static tier and an artifact (three processes at
-    once); last, ArtifactPredictor against Predictor."""
+    bf16 Predictors in every tier (K1 gates, the int8 product gates, the
+    products' stage times); the artifacts exported, then read back in a
+    fresh process while serve_cli serves the static tier and an artifact
+    (three processes at once); last, ArtifactPredictor on each artifact."""
     from shape_based_object_detection_torch import export, quantize
 
     log(f"[int8] the group's numbers are this card's: {nvidia_smi_line()}")
-    t = time.perf_counter()
     out = phase_int8_forward(torch, config, build_model, quantize)
-    log(f"[int8] card vs CPU forwards took {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
     serve_out, k1, preds, scales = phase_int8_serving(torch, config, serving, quantize,
                                                       nms_cuda, reset_counts)
     out.update(serve_out)
-    log(f"[int8] Predictors, products and times took {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
     art_out, folder, client, live = int8_export_artifacts(
         torch, config, export, detection, build_model, preds, scales, workdir)
     out.update(art_out)
@@ -3636,19 +2858,17 @@ def phase_int8(torch, config, serving, detection, build_model, nms_cuda, reset_c
         scales_path = os.path.join(workdir, "scales.json")
         quantize.save_activation_scales(scales_path, scales)
         bodies, _ = encoded_requests(1, 67)
-        runs = {  # both at once, beside the artifact client
-            "serve_cli_full_static_ready_s": (
-                ["--config", "config2_retinanet_r50_infer", "--batch-size", "4", "--quantize",
-                 "full", "--act-scales", scales_path, "--set", "model.dtype=\"bfloat16\"",
-                 "--set", "model.detect.score_threshold=0.0",
-                 "--set", "data.decode_backend=pil"],
-                bodies[0], "config #2 bf16 --quantize full --act-scales"),
-            "serve_cli_artifact_ready_s": (
-                ["--artifact", os.path.join(folder, "full_static.sbdx")], bodies[0],
-                "--artifact (R50 bf16 b16 full_static)")}
+        runs = (  # both at once, beside the artifact client
+            (["--config", "config2_retinanet_r50_infer", "--batch-size", "4", "--quantize",
+              "full", "--act-scales", scales_path, "--set", "model.dtype=\"bfloat16\"",
+              "--set", "model.detect.score_threshold=0.0",
+              "--set", "data.decode_backend=pil"],
+             bodies[0], "config #2 bf16 --quantize full --act-scales"),
+            (["--artifact", os.path.join(folder, "full_static.sbdx")], bodies[0],
+             "--artifact (R50 bf16 b16 full_static)"))
         with ThreadPoolExecutor(len(runs)) as pool:
-            ready = {k: pool.submit(serve_cli_answers, *v) for k, v in runs.items()}
-            out.update({k: f.result() for k, f in ready.items()})
+            for done in [pool.submit(serve_cli_answers, *run) for run in runs]:
+                done.result()
     except BaseException:
         client.kill()
         client.wait()
@@ -3657,8 +2877,7 @@ def phase_int8(torch, config, serving, detection, build_model, nms_cuda, reset_c
     # one K1 launch per call of each loaded artifact
     k1.update({f"int8_artifact_{k}_launches": v for k, v in checked.pop("launches").items()})
     out.update(checked)
-    out.update(int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, preds, folder))
-    log(f"[int8] artifacts, their client and serve_cli took {time.perf_counter() - t:.1f} s")
+    int8_artifact_predictors(torch, serving, nms_cuda, reset_counts, folder)
     return out, k1
 
 
@@ -3704,66 +2923,42 @@ def write_voc_folder(root, n, seed):
     return nbytes
 
 
-def loader_rate(make, batches=16, drain=16):
-    """A loader's steady supply on the host clock: (seconds to its first
-    batch, ms per batch over ``batches`` batches taken after ``drain`` more
-    (what worker processes prefetch while they start), seconds to close
-    it). Epochs follow one another."""
+def drive_loaders(cfg, ds, name, workers_list):
+    """The thread Loader (8 threads) and GrainLoader at each of
+    ``workers_list`` worker processes on ``ds`` at b32: each gives an
+    epoch's batches and the next epoch's first, and no worker process
+    outlives GrainLoader's close()."""
     import itertools
 
-    t = time.perf_counter()
-    loader = make()
-    it = itertools.chain.from_iterable(loader.batches(e) for e in itertools.count())
-    next(it)
-    start = time.perf_counter() - t
-    for _ in range(drain):
-        next(it)
-    per = []
-    for _ in range(batches):
-        t = time.perf_counter()
-        next(it)
-        per.append((time.perf_counter() - t) * 1e3)
-    t = time.perf_counter()
-    loader.close()
-    return start, np.array(per), time.perf_counter() - t
-
-
-def host_loaders(torch, cfg, ds, name, workers_list):
-    """The thread Loader (8 threads) and GrainLoader at ``workers_list``
-    on ``ds`` at b32: ms per batch."""
     from shape_based_object_detection_torch.data.grain_pipeline import GrainLoader
     from shape_based_object_detection_torch.data.pipeline import Loader
 
-    out = {}
     g = cfg.data.max_boxes
-    start, per, _ = loader_rate(lambda: Loader(ds, 32, g, seed=1, workers=8), drain=0)
-    out[f"{name}_threads8_batch_ms"] = float(np.mean(per))
-    log(f"[data] {name}: thread Loader (8 threads) b32 {spread(per)}, mean "
-        f"{np.mean(per):.3f} ms per batch (first batch after {start:.2f} s)")
-    for w in workers_list:
-        start, per, close = loader_rate(lambda: GrainLoader(ds, 32, g, seed=1, workers=w),
-                                        drain=2 * w)
-        out[f"{name}_grain{w}_batch_ms"] = float(np.mean(per))
-        out[f"{name}_grain{w}_start_s"] = start
+    batches = len(ds) // 32 + 1
+    for label, make in [("thread Loader (8 threads)",
+                         lambda: Loader(ds, 32, g, seed=1, workers=8))] + [
+            (f"GrainLoader, {w} worker processes",
+             lambda w=w: GrainLoader(ds, 32, g, seed=1, workers=w)) for w in workers_list]:
+        loader = make()
+        epochs = itertools.chain.from_iterable(loader.batches(e) for e in itertools.count())
+        got = [b.images.shape for b in itertools.islice(epochs, batches)]
+        loader.close()
         left = loader_workers_left()
-        log(f"[data] {name}: GrainLoader, {w} worker processes, b32 {spread(per)}, mean "
-            f"{np.mean(per):.3f} ms per batch after the {2 * w} batches prefetched while "
-            f"the workers started (workers started and first batch in {start:.2f} s; "
-            f"closed in {close:.2f} s, worker processes left {len(left)})")
-        if left:
-            raise RuntimeError(f"GrainLoader.close() left workers {left} running")
-    return out
+        log(f"[data] {name}: {label}, {len(got)} b32 batches of {got[0][1:]} over an epoch's "
+            f"end; worker processes left after close {len(left)}")
+        if len(got) != batches or left:
+            raise RuntimeError(f"{name} {label}: {len(got)} batches, workers left {left}")
 
 
-def phase_data(torch, train, cli_train, matching_cuda, reset_counts, workdir):
+def phase_data(torch, cli_train, matching_cuda, reset_counts, workdir):
     """The input pipelines on config #3's input (SSD-512, b32, 512 px,
-    max_boxes 100): the cache built from the 512 px synthetic split, its
-    bytes and time; CacheLoader's ms per batch; the cache staged on the card
-    (bytes there, the gather's device ms, every batch bit-equal to
-    CacheLoader's); GrainLoader at 0, 4 and 8 worker processes and the
+    max_boxes 100): the cache built from the 512 px synthetic split and its
+    bytes; the cache staged on the card (bytes there, every batch bit-equal
+    to CacheLoader's); GrainLoader at 0, 4 and 8 worker processes and the
     thread Loader on the same split and on a VOC folder of 256 JPEGs of
-    500 x 375 (the decode-bound case); then train_cli on config #3 under
-    each --loader: ms per step, the card's idle share, K2 once per step."""
+    500 x 375 (the decode-bound case), and that folder's cache; then
+    train_cli on config #3 under each --loader: K2 once per step, no loader
+    worker left running."""
     from shape_based_object_detection_torch import config as config_lib
     from shape_based_object_detection_torch.data.cache import (
         CacheLoader, DeviceCacheLoader, MemmapDetection, build_cache,
@@ -3776,61 +2971,38 @@ def phase_data(torch, train, cli_train, matching_cuda, reset_counts, workdir):
     ds = cli_train.build_dataset(cfg, argparse_ns(data_root=APP_TRAIN, split="train",
                                                   ann_file=""))
     cache_dir = os.path.join(workdir, "data_cache")
-    t = time.perf_counter()
     build_cache(ds, cache_dir, g, workers=8)
-    build_s = time.perf_counter() - t
     cache_bytes = sum(os.path.getsize(os.path.join(cache_dir, f))
                       for f in os.listdir(cache_dir) if f.endswith(".npy"))
     mm = MemmapDetection(cache_dir)
-    start, per, _ = loader_rate(lambda: CacheLoader(mm, 32, g, seed=1), drain=0)
-    log(f"[data] build_cache of {APP_TRAIN} ({len(ds)} images at 512 px, max_boxes {g}, 8 "
-        f"threads): {build_s:.2f} s, {cache_bytes} bytes; CacheLoader b32 {spread(per)}, "
-        f"mean {np.mean(per):.3f} ms per batch")
-    results.update({"cache_build_s": build_s, "cache_bytes": cache_bytes,
-                    "cache_loader_batch_ms": float(np.mean(per))})
-
-    t = time.perf_counter()
     dev = DeviceCacheLoader(mm, 32, g, seed=1)
-    torch.cuda.synchronize()
-    stage_s = time.perf_counter() - t
     on_card = sum(v.numel() * v.element_size() for v in dev._dev.values())
     host = CacheLoader(mm, 32, g, seed=1)
     pairs = list(zip(dev.device_batches(0), host.batches(0)))
     equal = len(pairs) == len(ds) // 32 and all(
         np.array_equal(a.cpu().numpy(), b) for d, h in pairs for a, b in zip(d, h))
-    chunk = np.sort(dev._epoch_indices(1)[:32])
-    gather = cuda_times_ms(lambda: dev._device_batch(chunk), iters=20)
-    batch_bytes = sum(v.numel() * v.element_size() for v in pairs[0][0])
-    bound = 2 * batch_bytes / HBM_BYTES_PER_S * 1e3  # each byte read once, written once
-    log(f"[data] DeviceCacheLoader: {on_card} bytes staged on the card in {stage_s:.2f} s; "
-        f"{len(pairs)} b32 batches bit-equal to CacheLoader's: {equal}; the on-card gather "
-        f"of a b32 batch ({batch_bytes} bytes, index_select) {spread(gather)} (CUDA events; "
-        f"bound {bound:.4f} ms at 3.35 TB/s) ({nvidia_smi_line()})")
+    log(f"[data] build_cache of {APP_TRAIN} ({len(ds)} images at 512 px, max_boxes {g}, 8 "
+        f"threads): {cache_bytes} bytes; DeviceCacheLoader: {on_card} bytes staged on the "
+        f"card; {len(pairs)} b32 batches bit-equal to CacheLoader's: {equal}")
     if not equal:
         raise RuntimeError("DeviceCacheLoader's batches differ from CacheLoader's")
-    results.update({"device_cache_bytes": on_card, "device_cache_stage_s": stage_s,
-                    "device_gather_ms": float(np.median(gather)),
-                    "device_gather_bound_ms": bound})
+    results.update({"cache_bytes": cache_bytes, "device_cache_bytes": on_card})
     del dev, pairs
     torch.cuda.empty_cache()
 
-    results.update(host_loaders(torch, cfg, ds, "synthetic", (0, 4, 8)))
+    drive_loaders(cfg, ds, "synthetic", (0, 4, 8))
     voc_root = os.path.join(workdir, "voc")
-    t = time.perf_counter()
     jpeg_bytes = write_voc_folder(voc_root, VOC_IMAGES, 9)
     voc = VOCDetection(voc_root, "train", image_size=512, decode_backend="auto")
-    log(f"[data] a VOC folder of {VOC_IMAGES} JPEGs of 500 x 375 ({jpeg_bytes} bytes) "
-        f"written in {time.perf_counter() - t:.2f} s; decode backend {voc.decode_backend!r}")
-    results.update(host_loaders(torch, cfg, voc, "voc_jpeg", (0, 4, 8)))
-    t = time.perf_counter()
+    log(f"[data] a VOC folder of {VOC_IMAGES} JPEGs of 500 x 375 ({jpeg_bytes} bytes); "
+        f"decode backend {voc.decode_backend!r}")
+    drive_loaders(cfg, voc, "voc_jpeg", (0, 4, 8))
     build_cache(voc, os.path.join(workdir, "voc_cache"), g, workers=8)
-    results["voc_cache_build_s"] = time.perf_counter() - t
-    log(f"[data] build_cache of the VOC folder (8 threads, one decode per image): "
-        f"{results['voc_cache_build_s']:.2f} s")
+    log("[data] build_cache of the VOC folder (8 threads, one decode per image) done")
 
-    # train_cli on config #3 under each loader: steps 4-8 timed, 8-11 profiled.
-    # One grain run: on the card, a second GrainLoader driven by train_cli in
-    # one process waits 5 s per worker to close (PERF.md §7)
+    # train_cli on config #3 under each loader, into a second epoch. One
+    # grain run: on the card, a second GrainLoader driven by train_cli in one
+    # process waits 5 s per worker to close
     steps = 12
     runs = [("threads", APP_TRAIN), ("cache", APP_TRAIN), ("device", APP_TRAIN),
             ("threads", voc_root), ("grain", voc_root)]
@@ -3841,19 +3013,15 @@ def phase_data(torch, train, cli_train, matching_cuda, reset_counts, workdir):
                 "--loader", loader, "--cache-dir", os.path.join(workdir, f"cli_cache_{tag}"),
                 "--checkpoint-dir", os.path.join(workdir, f"cli_{tag}")]
         reset_counts()
-        text, wall, interval, busy, window, idle = cli_loop(torch, train, cli_train, argv,
-                                                            (4, 8), (8, 12))
+        text = run_cli(cli_train.main, argv)
+        torch.cuda.synchronize()
         k2 = matching_cuda.launches
         left = loader_workers_left()
         if k2 != steps or f"done at step {steps}" not in text or left:
             raise RuntimeError(f"train_cli --loader {loader} on {root}: K2 {k2} in {steps} "
                                f"steps, loader workers left running {left}: {text[-300:]}")
         log(f"[data] train_cli config #3 --loader {loader} on {tag.split('_', 1)[1]}: "
-            f"{interval:.3f} ms per step over steps 4-8 ({32e3 / interval:.1f} images/s), "
-            f"idle share {idle:.3f} over steps 8-11 (busy {busy:.3f} of {window:.3f} ms); "
-            f"wall {wall:.1f} s; K2 launches {k2} (one per step); no loader worker left "
-            f"running")
-        results.update({f"cli_{tag}_step_ms": interval, f"cli_{tag}_idle_share": idle})
+            f"{steps} steps, K2 launches {k2} (one per step); no loader worker left running")
     return results
 
 
@@ -3869,10 +3037,9 @@ def dp_equal_to_plain(torch, train, build_model, matching_cuda, mesh, cfg, batch
     """Two steps of the data-parallel step on ``mesh`` and of the plain
     step, from the same weights, batch and generator seed, with cuDNN's
     deterministic algorithms: metrics and state bit-equal. Returns the
-    data-parallel step's K2 launches and its ms per step beside the plain
-    step's (cuDNN's usual algorithms, CUDA events)."""
+    data-parallel step's K2 launches."""
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    runs, launches, times = {}, None, {}
+    runs, launches = {}, None
     deterministic = torch.backends.cudnn.deterministic
     for m in (None, mesh):
         module, anchors = build_model(cfg.model, device="cuda", train=True,
@@ -3890,7 +3057,6 @@ def dp_equal_to_plain(torch, train, build_model, matching_cuda, mesh, cfg, batch
         finally:
             torch.backends.cudnn.deterministic = deterministic
         runs[m is None] = (metrics, {k: v.clone() for k, v in module.state_dict().items()})
-        times[m is None] = cuda_times_ms(lambda: step(state, batch), iters=5, warmup=2)
         del module, state, step
         torch.cuda.empty_cache()
     (dp_m, dp_s), (pl_m, pl_s) = runs[False], runs[True]
@@ -3898,12 +3064,10 @@ def dp_equal_to_plain(torch, train, build_model, matching_cuda, mesh, cfg, batch
             and all(torch.equal(dp_s[k], v) for k, v in pl_s.items()))
     log(f"[dist] {name}: the data-parallel step in an NCCL group of one vs the plain step, 2 "
         f"steps, cuDNN deterministic: metrics and state bit-equal: {same} (loss "
-        f"{float(dp_m[-1]['loss']):.6f}); K2 launches {launches} in 2 data-parallel steps; "
-        f"step {spread(times[False])} data-parallel, {spread(times[True])} plain "
-        f"({nvidia_smi_line()})")
+        f"{float(dp_m[-1]['loss']):.6f}); K2 launches {launches} in 2 data-parallel steps")
     if not same or launches != 2:
         raise RuntimeError(f"{name}: data-parallel step bit-equal {same}, K2 {launches}")
-    return launches, float(np.median(times[False])), float(np.median(times[True]))
+    return launches
 
 
 def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, nms,
@@ -3914,7 +3078,8 @@ def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, 
     SSD-512 b32 with train_bn and remat); K2 bit-equal on the rank's
     augmented local batch; the sharded eval step (config #3 b32): K1 once
     per batch, bit-equal on the candidates of the rank's rows, and the
-    detections gathered equal to make_eval_step's without a group."""
+    detections gathered equal to make_eval_step's without a group. Returns
+    (K1 entries, K2 entries)."""
     import torch.distributed as dist
 
     from shape_based_object_detection_torch.data.augment import augment_batch
@@ -3926,7 +3091,7 @@ def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, 
            "MASTER_PORT": str(free_port())}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    out, k1, k2 = {}, {}, {}
+    k1, k2 = {}, {}
     try:
         mesh = initialize_multihost()
         backend = dist.get_backend()
@@ -3934,20 +3099,15 @@ def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, 
             raise RuntimeError(f"the group formed on {backend}, {mesh}")
         try:
             r50 = train_config(config, "bfloat16", 16)
-            launches, dp_ms, plain_ms = dp_equal_to_plain(
-                torch, train, build_model, matching_cuda, mesh, r50,
-                train_batch(np.random.default_rng(60), 16), "R50-FPN-512 b16 bf16")
-            out.update({"dist_r50_b16_bf16_step_ms": dp_ms,
-                        "plain_r50_b16_bf16_step_ms": plain_ms})
+            dp_equal_to_plain(torch, train, build_model, matching_cuda, mesh, r50,
+                              train_batch(np.random.default_rng(60), 16), "R50-FPN-512 b16 bf16")
             ssd = ssd_train_config(config, 32)
             ssd = dataclasses.replace(ssd, model=dataclasses.replace(ssd.model, train_bn=True,
                                                                      remat=True))
             batch = train_batch(np.random.default_rng(61), 32, g=100, classes=20)
-            launches, dp_ms, plain_ms = dp_equal_to_plain(
+            k2["dist_launches"] = dp_equal_to_plain(
                 torch, train, build_model, matching_cuda, mesh, ssd, batch,
                 "SSD-512 b32 (config #3) with train_bn and remat")
-            out.update({"dist_ssd512_b32_step_ms": dp_ms, "plain_ssd512_b32_step_ms": plain_ms})
-            k2["dist_launches"] = launches
 
             # K2 on the rank's augmented local batch (its rows of the global batch)
             gen = torch.Generator(device="cuda").manual_seed(ssd.train.seed)
@@ -3981,10 +3141,8 @@ def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, 
             k1["dist_eval_launches"] = nms_cuda.launches
             want = train.make_eval_step(module, anchors, cfg)(state, images)
             same = all(torch.equal(a, b) for a, b in zip(det, want))
-            with torch.inference_mode():
-                x = detection.image_lib.normalize_images(images[rows])
-                cands = detection.select_candidates(*module(x.permute(0, 3, 1, 2)), anchors,
-                                                    cfg.model)
+            cands = path_candidates(torch, detection, module, anchors, cfg.model,
+                                    images[rows])
             k1["dist_eval_max_abs_err"] = k1_on(torch, nms, cands, cfg.model.detect,
                                                 "the sharded eval step's candidates")
             log(f"[dist] the sharded eval step (config #3 b32 at threshold 0) in the group: K1 "
@@ -4002,7 +3160,7 @@ def phase_dist_nccl(torch, config, train, build_model, matching_cuda, nms_cuda, 
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    return out, k1, k2
+    return k1, k2
 
 
 def dist_cli_worker(kind, out_path, *argv):
@@ -4056,7 +3214,7 @@ def phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts, workdir):
     per card (an NCCL group of one): 8 steps, a val eval, a checkpoint;
     then its resume to step 12; K2 once per step in each; then eval_cli
     on that checkpoint the same way, its records equal to eval_cli's
-    without a group."""
+    without a group. Returns (K2 entries, K1 entries)."""
     import json as json_lib
 
     from shape_based_object_detection_torch import eval as eval_pkg
@@ -4064,22 +3222,17 @@ def phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts, workdir):
     ckpt = os.path.join(workdir, "dist_ckpt")
     common = ["--config", "config3_ssd512_voc_train", "--data-root", APP_TRAIN,
               "--log-every", "4", "--workers", "8", "--checkpoint-dir", ckpt]
-    t = time.perf_counter()
     text, first = torchrun(["train", *common, "--steps", "8", "--eval-every", "8",
                             "--val-root", APP_VAL, "--val-batches", "1"],
                            os.path.join(workdir, "dist_train.pkl"))
-    first_s = time.perf_counter() - t
-    t = time.perf_counter()
     text2, second = torchrun(["train", *common, "--steps", "12"],
                              os.path.join(workdir, "dist_resume.pkl"))
-    second_s = time.perf_counter() - t
     ok = ("done at step 8" in text and "voc-mAP(val)=" in text
           and "restored checkpoint at step 8" in text2 and "done at step 12" in text2
           and sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())[-1] == 12)
     log(f"[dist] train_cli config #3 under torch.distributed.run --nproc_per_node 1 (NCCL): "
-        f"8 steps with a val eval in {first_s:.1f} s, K2 {first['k2']}, K1 {first['k1']}; "
-        f"resumed to step 12 in {second_s:.1f} s, K2 {second['k2']}; checkpoint and resume "
-        f"as expected: {ok}")
+        f"8 steps with a val eval, K2 {first['k2']}, K1 {first['k1']}; resumed to step 12, "
+        f"K2 {second['k2']}; checkpoint and resume as expected: {ok}")
     if not ok or first["k2"] != 8 or second["k2"] != 4 or first["k1"] != 1:
         raise RuntimeError(f"train_cli under torchrun: {text[-500:]} {text2[-500:]}")
 
@@ -4098,8 +3251,8 @@ def phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts, workdir):
         f"eval_cli's without a group: {same}")
     if not same or report["k1"] != 2:
         raise RuntimeError("eval_cli under torchrun differs from eval_cli alone")
-    return {"dist_train_cli_8_steps_s": first_s, "dist_train_cli_resume_s": second_s}, {
-        "dist_cli_launches": first["k2"] + second["k2"]}, {"dist_eval_cli_launches": report["k1"]}
+    return ({"dist_cli_launches": first["k2"] + second["k2"]},
+            {"dist_eval_cli_launches": report["k1"]})
 
 
 GLOO_STEPS = 2
@@ -4196,9 +3349,8 @@ def phase_dist_gloo(torch, config, train, build_model, workdir):
     return {f"dist_gloo_worst_rel_{k}": v for k, v in worst.items()}
 
 
-# the spatial group: checked steps, then timed steps, of each run
+# the spatial group: checked steps of each run
 SPATIAL_STEPS = 2
-SPATIAL_TIMED = 3
 
 
 def spatial_config(config, preset, batch, mp, **model_changes):
@@ -4226,22 +3378,10 @@ def spatial_widen(module):
         getattr(module, f"cls_{i}").weight.mul_(2.0)
 
 
-def spatial_times(torch, device, fn):
-    """SPATIAL_TIMED calls of ``fn``, each on the host clock to a
-    synchronize (ms)."""
-    times = []
-    for _ in range(SPATIAL_TIMED):
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(device)
-        times.append((time.perf_counter() - t) * 1e3)
-    return times
-
-
 def spatial_train(torch, plan, mesh, device, rows):
     """The train part of ``spatial_run``: SPATIAL_STEPS steps (metrics, K2
-    launches, peak memory, parameters), SPATIAL_TIMED timed steps and the
-    row exchanges of one forward."""
+    launches, peak memory, parameters) and the row exchanges of one
+    forward."""
     from shape_based_object_detection_torch import train
     from shape_based_object_detection_torch.models.factory import build_model
     from shape_based_object_detection_torch.ops import matching_cuda
@@ -4265,8 +3405,7 @@ def spatial_train(torch, plan, mesh, device, rows):
            "peak": torch.cuda.max_memory_allocated(device),
            "state": {k: v.cpu() for k, v in module.state_dict().items()}
            if plan["keep_state"] else None,
-           "sums": [float(v.double().sum()) for v in module.state_dict().values()],
-           "step_ms": spatial_times(torch, device, lambda: step(state, local))}
+           "sums": [float(v.double().sum()) for v in module.state_dict().values()]}
     shard = module.row_shard
     x = image_lib.normalize_images(local["images"]).permute(0, 3, 1, 2)
     if shard is not None:
@@ -4280,11 +3419,10 @@ def spatial_train(torch, plan, mesh, device, rows):
 def spatial_run(torch, plan, mesh, device):
     """One process's part of a spatial run (``mesh`` None: the unsplit
     reference, alone): SPATIAL_STEPS train steps with cuDNN's deterministic
-    algorithms (their metrics, K2 launches and peak memory), SPATIAL_TIMED
-    timed steps, the row exchanges of one forward, then detect on the
-    images with its K1 launches, gathered over the data axis. A plan with
-    ``train`` false drives detect alone: its peak memory, time and row
-    exchanges are detect's."""
+    algorithms (their metrics, K2 launches and peak memory), the row
+    exchanges of one forward, then detect on the images with its K1
+    launches, gathered over the data axis. A plan with ``train`` false
+    drives detect alone: its peak memory and row exchanges are detect's."""
     from shape_based_object_detection_torch.detection import make_detect_fn, select_candidates
     from shape_based_object_detection_torch.models.factory import build_model
     from shape_based_object_detection_torch.ops import nms_cuda
@@ -4315,7 +3453,6 @@ def spatial_run(torch, plan, mesh, device):
         out["k1"] = nms_cuda.launches
         if not plan.get("train", True):
             out["peak"] = torch.cuda.max_memory_allocated(device)
-            out["step_ms"] = spatial_times(torch, device, lambda: detect(images))
             shard = module.row_shard
             if shard is not None:
                 shard.reset_counts()
@@ -4429,9 +3566,9 @@ def spatial_compare(torch, split, alone, name, backend, check_state=True, post=N
     near-tie: the gathered head outputs within SPATIAL_FORWARD_ATOL of the
     unsplit ones, and each rank's detections bit-equal to ``post`` of its
     own gathered outputs; how many images also equal the unsplit detect at
-    the reference's bounds is logged. Logs each rank's peak memory and step
-    (or detect) time beside the unsplit process's. A detect-only run (no
-    metrics) checks detect. Returns the worst differences."""
+    the reference's bounds is logged. Logs each rank's peak memory beside
+    the unsplit process's. A detect-only run (no metrics) checks detect.
+    Returns the worst differences."""
     from tests.torch_kernel_cases import same_detections
 
     trained = "metrics" in alone
@@ -4465,9 +3602,6 @@ def spatial_compare(torch, split, alone, name, backend, check_state=True, post=N
     n_det = int(alone["det"][3].sum())
     smi = nvidia_smi_line()
     peaks = ", ".join(f"rank {i} {r['peak'] / 2**30:.3f} GiB" for i, r in enumerate(split))
-    times = ", ".join(f"rank {i} {float(np.median(r['step_ms'])):.1f}"
-                      for i, r in enumerate(split))
-    what = "step" if trained else "detect"
     log(f"[spatial] {name} over {backend}: {len(split)} ranks (data index, model index, "
         f"data size, data group): {[r['layout'] for r in split]}; "
         + (f"{SPATIAL_STEPS} steps vs one process on the global batch: worst relative "
@@ -4488,9 +3622,6 @@ def spatial_compare(torch, split, alone, name, backend, check_state=True, post=N
     log(f"[spatial] {name} peak memory (torch.cuda.max_memory_allocated over the checked "
         f"{'steps' if trained else 'detect'}): {peaks}; unsplit "
         f"{alone['peak'] / 2**30:.3f} GiB ({smi})")
-    log(f"[spatial] {name} {what} ms (host clock to a synchronize, median of "
-        f"{SPATIAL_TIMED}; {backend}{' through the host, not NCCL' if backend == 'gloo' else ''}"
-        f"): {times}; unsplit {float(np.median(alone['step_ms'])):.1f} ({smi})")
     images = alone["det"][0].shape[0] // split[0]["layout"][2]
     log(f"[spatial] {name} row exchanges in one forward of a data index's {images} images: "
         + ", ".join(f"rank {i} {r['halo'][0]} exchanges, {r['halo'][1]} bytes of "
@@ -4515,9 +3646,9 @@ def spatial_serve_run(torch, plan, mesh, device):
     None: unsplit, alone), on the plan's images (a data index's): hflip
     TTA, two-scale TTA and the three int8 tiers of the serving R50-FPN-512,
     each with its K1 launches counted from 0 around one detect call, its
-    detections, the candidates its merge (or NMS) takes, and the time of
-    SPATIAL_TIMED more calls; then, on rank 0 of a mesh, the artifact of the
-    row-split module (``export_detect`` of its unsplit copy)."""
+    detections and the candidates its merge (or NMS) takes; then, on rank 0
+    of a mesh, the artifact of the row-split module (``export_detect`` of
+    its unsplit copy)."""
     from shape_based_object_detection_torch import export, quantize
     from shape_based_object_detection_torch.detection import (
         MultiScaleBatchDetector, _concat, make_detect_fn, select_candidates,
@@ -4553,8 +3684,7 @@ def spatial_serve_run(torch, plan, mesh, device):
         with torch.inference_mode():
             cands = candidates()
         out[name] = {"det": [t.cpu() for t in det], "k1": launches,
-                     "cands": [t.cpu() for t in cands],
-                     "ms": spatial_times(torch, device, lambda: detect(images))}
+                     "cands": [t.cpu() for t in cands]}
 
     out = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -4615,7 +3745,7 @@ def spatial_serve(torch, config, nms, nms_cuda, workdir):
     bit-equal to its plain version on each path's merged
     candidates (rank 0's), with its launches; then the artifact of the
     row-split module, loaded on the card, against the unsplit module's
-    artifact. Returns (results, K1's entries)."""
+    artifact. Returns K1's entries."""
     from shape_based_object_detection_torch import export, quantize
     from shape_based_object_detection_torch.models.factory import build_model
     from tests.torch_kernel_cases import same_detections
@@ -4631,18 +3761,12 @@ def spatial_serve(torch, config, nms, nms_cuda, workdir):
     with torch.no_grad():
         spatial_widen(module)
     plan["act_scales"] = quantize.calibrate_activation_scales(module, [images[:8]], cfg.data)
-    t = time.perf_counter()
     alone = spatial_serve_run(torch, plan, None, torch.device("cuda", 0))
-    log(f"[spatial] serving R50-FPN-512 b16 paths in one process: "
-        f"{time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
-    t = time.perf_counter()
     split = spatial_ranks(plan, 2, "gloo", workdir, "spatial_serve")
-    log(f"[spatial] serving paths on 1 data x 2 model ranks: {time.perf_counter() - t:.1f} s")
     want_k1 = {"hflip": 1, "scales": len(SPATIAL_TTA_SCALES) + 1,
                **{tier: 1 for tier in SPATIAL_TIERS}}
-    out, k1 = {}, {}
-    smi = nvidia_smi_line()
+    k1 = {}
     for path, launches in want_k1.items():
         w = alone[path]
         exact = [same_detections(r[path]["det"], w["det"]) for r in split]
@@ -4654,12 +3778,7 @@ def spatial_serve(torch, config, nms, nms_cuda, workdir):
             f"({n_det}) matched one to one to unsplit at the repo's end-to-end bar (label, "
             f"IoU >= 0.99, |score difference| <= 1e-3): {same}; equal at the reference's "
             f"bounds per rank: {exact}; max |score difference| slot by slot {score_err:.3e}; "
-            f"K1 launches "
-            f"{got_k1} per detect (unsplit {w['k1']}, expected {launches}); ms (host clock to a "
-            f"synchronize, median of {SPATIAL_TIMED}, gloo through the host) "
-            + ", ".join(f"rank {i} {float(np.median(r[path]['ms'])):.1f}"
-                        for i, r in enumerate(split))
-            + f"; unsplit {float(np.median(w['ms'])):.1f} ({smi})")
+            f"K1 launches {got_k1} per detect (unsplit {w['k1']}, expected {launches})")
         if not (same and n_det > 0 and all(k == launches for k in got_k1)
                 and w["k1"] == launches):
             raise RuntimeError(f"serving {path} under the model axis differs from unsplit")
@@ -4671,12 +3790,9 @@ def spatial_serve(torch, config, nms, nms_cuda, workdir):
             k1.update({f"spatial_{path}_{k}": v for k, v in nms_timing(
                 nms, nms_cuda, cands, cfg.model.detect,
                 f"the split {path} path's candidates").items()})
-        out[f"spatial_serve_{path}_ms"] = float(np.median(split[0][path]["ms"]))
-        out[f"spatial_serve_{path}_unsplit_ms"] = float(np.median(w["ms"]))
     # the artifact: a program for one device, exported from a row-split module
     if not split[0].get("artifact_kept_shard"):
         raise RuntimeError("export_detect changed the row-split module's shard")
-    t = time.perf_counter()
     blob = export.export_detect(module, anchors, cfg.model, cfg.data,
                                 batch_size=SPATIAL_ARTIFACT_BATCH, device="cuda")
     got = export.load_artifact(plan["artifact"], "cuda")(images[:SPATIAL_ARTIFACT_BATCH])
@@ -4684,10 +3800,10 @@ def spatial_serve(torch, config, nms, nms_cuda, workdir):
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     log(f"[spatial] the artifact exported from a row-split module (rank 0), loaded on the "
         f"card: detections ({int(want.valid.sum())}) equal to the unsplit module's artifact "
-        f"bit for bit: {same} ({time.perf_counter() - t:.1f} s with the unsplit export)")
+        f"bit for bit: {same}")
     if not (same and bool(want.valid.any())):
         raise RuntimeError("the row-split module's artifact differs from the unsplit one")
-    return out, k1
+    return k1
 
 
 def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir):
@@ -4700,7 +3816,8 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
     config #1's SSD300 detect (b16) on 1 x 4, whose maps split unevenly;
     the serving R50-FPN-512's TTA, int8 tiers and artifact on 1 x 2
     (``spatial_serve``); K1 and K2 bit-equal to their plain versions on
-    these paths' candidates and GT, and their times there."""
+    these paths' candidates and GT, and their times there. Returns
+    (results, K1 entries, K2 entries)."""
     from shape_based_object_detection_torch.ops.anchors import anchors_for_model
     from tests.torch_kernel_cases import match_check
 
@@ -4713,28 +3830,23 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
             "detect_cfg": dataclasses.replace(cfg5, model=dataclasses.replace(
                 cfg5.model, detect=dataclasses.replace(cfg5.model.detect,
                                                        score_threshold=0.0)))}
-    t = time.perf_counter()
     alone = spatial_run(torch, plan, None, torch.device("cuda", 0))
     torch.cuda.empty_cache()
     log(f"[spatial] config #5 (R101-FPN 1024 px fp32, TF32 off, train.remat, focal, b2) in one "
-        f"process: loss {alone['metrics'][-1]['loss']:.6f}, {time.perf_counter() - t:.1f} s")
+        f"process: loss {alone['metrics'][-1]['loss']:.6f}")
     backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
     if len(backends) == 1:
         log(f"[spatial] NCCL: not run, the machine has {torch.cuda.device_count()} card "
             "(NCCL takes one rank per card)")
     for backend in backends:
-        t = time.perf_counter()
         split = spatial_ranks(plan, 2, backend, workdir, f"spatial_{backend}")
         worst = spatial_compare(torch, split, alone, "config #5 on 1 data x 2 model", backend)
-        log(f"[spatial] the {backend} run took {time.perf_counter() - t:.1f} s")
         out.update({f"spatial_{backend}_worst_rel_{k}": v for k, v in worst.items()})
         out.update({f"spatial_{backend}_rank{i}_peak_bytes": r["peak"]
                     for i, r in enumerate(split)})
-        out.update({f"spatial_{backend}_step_ms": float(np.median(split[0]["step_ms"]))})
         if backend == "gloo":
             gloo = split
     out.update({"spatial_unsplit_peak_bytes": alone["peak"],
-                "spatial_unsplit_step_ms": float(np.median(alone["step_ms"])),
                 "spatial_halo_exchanges_per_forward": gloo[0]["halo"][0],
                 "spatial_halo_bytes_per_forward": [r["halo"][1] for r in gloo]})
     k1["spatial_launches"] = sum(r["k1"] for r in gloo)
@@ -4796,17 +3908,13 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
             "detect_cfg": dataclasses.replace(cfg3, model=dataclasses.replace(
                 cfg3.model, detect=dataclasses.replace(cfg3.model.detect,
                                                        score_threshold=0.0)))}
-    t = time.perf_counter()
     alone = spatial_run(torch, plan, None, torch.device("cuda", 0))
     torch.cuda.empty_cache()
     split = spatial_ranks(plan, 2, "gloo", workdir, "spatial_ssd512")
     worst = spatial_compare(torch, split, alone, "config #3 SSD-512 (b8) on 1 data x 2 model",
                             "gloo", post=spatial_post(torch, cfg3.model))
-    log(f"[spatial] the SSD-512 runs took {time.perf_counter() - t:.1f} s")
     out.update({f"spatial_ssd512_worst_rel_{k}": v for k, v in worst.items()})
     out.update({"spatial_ssd512_unsplit_peak_bytes": alone["peak"],
-                "spatial_ssd512_step_ms": float(np.median(split[0]["step_ms"])),
-                "spatial_ssd512_unsplit_step_ms": float(np.median(alone["step_ms"])),
                 **{f"spatial_ssd512_rank{i}_peak_bytes": r["peak"]
                    for i, r in enumerate(split)}})
     k1["spatial_ssd512_launches"] = sum(r["k1"] for r in split)
@@ -4840,15 +3948,11 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
     plan = {"cfg": cfg1, "seed": 14, "train": False, "detect_cfg": cfg1, "keep_forward": True,
             "images": np.random.default_rng(98).integers(0, 256, (16, 300, 300, 3),
                                                            dtype=np.uint8)}
-    t = time.perf_counter()
     alone = spatial_run(torch, plan, None, torch.device("cuda", 0))
     torch.cuda.empty_cache()
     split = spatial_ranks(plan, 4, "gloo", workdir, "spatial_ssd300")
     spatial_compare(torch, split, alone, "config #1 SSD300 detect (b16) on 1 data x 4 model",
                     "gloo", post=spatial_post(torch, cfg1.model))
-    log(f"[spatial] the SSD300 runs took {time.perf_counter() - t:.1f} s")
-    out.update({"spatial_ssd300_detect_ms": float(np.median(split[0]["step_ms"])),
-                "spatial_ssd300_unsplit_detect_ms": float(np.median(alone["step_ms"]))})
     k1["spatial_ssd300_launches"] = sum(r["k1"] for r in split)
     cands = [c.cuda() for c in split[0]["cands"]]
     k1["spatial_ssd300_max_abs_err"] = k1_on(torch, nms, cands, cfg1.model.detect,
@@ -4859,9 +3963,7 @@ def phase_spatial(torch, config, nms, nms_cuda, matching, matching_cuda, workdir
     torch.cuda.empty_cache()
 
     # the serving tier under the model axis: TTA, the int8 tiers, the artifact
-    serve_out, serve_k1 = spatial_serve(torch, config, nms, nms_cuda, workdir)
-    out.update(serve_out)
-    k1.update(serve_k1)
+    k1.update(spatial_serve(torch, config, nms, nms_cuda, workdir))
     return out, k1, k2
 
 
@@ -4903,9 +4005,7 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     tools/convert_checkpoint --mode vgg_backbone on a full-width synthetic
     torchvision VGG-16, then 2 train_cli steps from the file with
     --init-params (K2 twice); both examples as subprocesses, each exiting 0
-    with its lines. Returns (results, K1 rows, K2 rows)."""
-    import subprocess
-
+    with its lines. Returns (K1 rows, K2 rows)."""
     from shape_based_object_detection_torch.checkpoint import CheckpointManager
     from shape_based_object_detection_torch.export import load_artifact
     from shape_based_object_detection_torch.tools import (
@@ -4913,22 +4013,18 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     )
     from tests.torch_kernel_cases import torchvision_vgg16
 
-    out, k1, k2, secs = {}, {}, {}, {}
+    k1, k2 = {}, {}
     config3 = ["--config", "config3_ssd512_voc_train"]
     train = [*config3, "--data-root", APP_TRAIN, "--workers", "8", "--log-every", "1"]
     run, avg = os.path.join(workdir, "tools_run"), os.path.join(workdir, "tools_avg")
 
-    t = time.perf_counter()
     run_cli(cli_train.main, [*train, "--steps", "3", "--set", "train.checkpoint_every=1",
                              "--checkpoint-dir", run])
-    secs["train_3_steps"] = time.perf_counter() - t
     steps = CheckpointManager(run).all_steps()
     if steps != [1, 2, 3]:
         raise RuntimeError(f"the config #3 run kept checkpoints {steps}, not [1, 2, 3]")
-    t = time.perf_counter()
     run_cli(average_checkpoints.main, [*config3, "--checkpoint-dir", run, "--last", "3",
                                        "--out", avg])
-    secs["average"] = time.perf_counter() - t
     snaps = [CheckpointManager(run).read(step) for step in steps]
     got = CheckpointManager(avg).read(3)
     want = host_average(snaps)
@@ -4948,21 +4044,17 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     del snaps, got
 
     reset_counts()
-    t = time.perf_counter()
     text = run_cli(cli_eval.main, [*config3, "--data-root", APP_VAL, "--checkpoint-dir", avg,
                                    "--set", "model.detect.score_threshold=0.0"])
     torch.cuda.synchronize()
-    secs["eval_cli"] = time.perf_counter() - t
     k1["tools_eval_launches"] = nms_cuda.launches
     if nms_cuda.launches != 2 or "mAP" not in text:
         raise RuntimeError(f"eval_cli on the averaged checkpoint launched K1 "
                            f"{nms_cuda.launches} times for 2 batches: {text[-300:]}")
 
     artifact = os.path.join(workdir, "tools_avg.sbdx")
-    t = time.perf_counter()
     run_cli(export_model.main, [*config3, "--checkpoint-dir", avg, "--batch-size", "2",
                                 "--out", artifact])
-    secs["export"] = time.perf_counter() - t
     loaded = load_artifact(artifact)
     reset_counts()
     det = loaded(np.zeros((2, 512, 512, 3), np.uint8))
@@ -4974,17 +4066,14 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     del loaded
 
     reset_counts()
-    t = time.perf_counter()
     text = run_cli(cli_train.main, [*train, "--steps", "4", "--checkpoint-dir", avg])
     torch.cuda.synchronize()
-    secs["resume_1_step"] = time.perf_counter() - t
     k2["tools_resume_launches"] = matching_cuda.launches
     if (matching_cuda.launches != 1 or "restored checkpoint at step 3" not in text
             or "done at step 4" not in text):
         raise RuntimeError(f"train_cli did not resume from the average for one step: "
                            f"{text[-300:]}")
 
-    t = time.perf_counter()
     vgg = torchvision_vgg16(np.random.default_rng(31))
     with torch.no_grad():
         for key, v in vgg.items():  # lecun-normal, as trained weights are scaled
@@ -4992,11 +4081,8 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
                 v.mul_(1.0 / np.sqrt(v[0].numel()))
     vgg_path, init = os.path.join(workdir, "vgg16.pth"), os.path.join(workdir, "vgg_init.pt")
     torch.save(vgg, vgg_path)
-    secs["write_vgg16"] = time.perf_counter() - t
-    t = time.perf_counter()
     run_cli(convert_checkpoint.main, ["--model", "config3_ssd512_voc_train", "--torch-ckpt",
                                       vgg_path, "--mode", "vgg_backbone", "--out", init])
-    secs["convert"] = time.perf_counter() - t
     conv = torch.load(init, weights_only=True)
     fc6 = vgg["classifier.0.weight"].reshape(4096, 512, 7, 7)[::4, :, ::3, ::3]
     merged = (torch.equal(conv["vgg.conv1_1.weight"], vgg["features.0.weight"])
@@ -5004,11 +4090,9 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     n_vgg = sum(v.numel() for v in vgg.values())
     del vgg, conv, fc6
     reset_counts()
-    t = time.perf_counter()
     text = run_cli(cli_train.main, [*train, "--steps", "2", "--init-params", init,
                                     "--checkpoint-dir", os.path.join(workdir, "tools_init")])
     torch.cuda.synchronize()
-    secs["init_params_2_steps"] = time.perf_counter() - t
     k2["tools_init_params_launches"] = matching_cuda.launches
     log(f"[tools] convert_checkpoint --mode vgg_backbone: a synthetic torchvision VGG-16 of "
         f"{n_vgg} parameters ({os.path.getsize(vgg_path)} bytes) into config #3's SSD-512 "
@@ -5022,22 +4106,17 @@ def phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda, reset_count
     for name, (args, expect) in EXAMPLES.items():
         folder = os.path.join(workdir, f"example_{name}")
         os.makedirs(folder)
-        t = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"shape_based_object_detection_torch.examples.{name}",
              *args, *(["--out", folder] if name == "demo" else [])],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
-        secs[f"example_{name}"] = time.perf_counter() - t
         missing = [e for e in expect if e not in proc.stdout]
         for line in proc.stdout.splitlines():
             log(f"[{name}] {line}")
         if proc.returncode != 0 or missing:
             raise RuntimeError(f"example {name} exited {proc.returncode}, missing {missing}: "
                                f"{proc.stderr[-2000:]}")
-    log(f"[tools] seconds per part ({nvidia_smi_line()}): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
-    out.update({f"tools_{k}_s": v for k, v in secs.items()})
-    return out, k1, k2
+    return k1, k2
 
 
 ACCURACY_STEPS = 1000  # per arm of the ablation's seed
@@ -5165,9 +4244,7 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
     rows, arms = [], {}
     val_batches = -(-args.val_images // args.batch)
     for w in (0.0, args.shape_weight):
-        t = time.perf_counter()
         arm = am.build_arm(args, w, seed=7)
-        built_s = time.perf_counter() - t
         mcfg = arm.cfg.match
         first = next(iter(arm.train_batches(0)))
         passed, err, line = match_check(arm.anchors, first.boxes, first.labels, first.valid,
@@ -5186,22 +4263,19 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
         _, last_loss, train_s = am.train_arm(args, arm, w)
         steps_k2 = matching_cuda.launches
         reset_counts()
-        t = time.perf_counter()
         with last_nms_input(detection) as kept:
             metrics = am.score_arm(arm)
         torch.cuda.synchronize()
-        score_s = time.perf_counter() - t
         score_k1 = nms_cuda.launches
         k1["accuracy_launches"] += score_k1
         k2["accuracy_launches"] += steps_k2
         row = am.arm_row(args, w, 7, metrics, last_loss, train_s, device)
         rows.append(row)
-        log(f"[accuracy] ablate_matching arm w={w:g} seed 7: {json.dumps(row)}")
-        log(f"[accuracy] arm w={w:g}: built (caches, model) in {built_s:.2f} s, "
-            f"{args.steps} steps in {train_s:.2f} s ({1e3 * train_s / args.steps:.2f} ms per "
-            f"step, host clock), scored in {score_s:.2f} s; K2 launches {steps_k2} in "
-            f"{args.steps} steps, K1 launches {score_k1} in {val_batches} validation "
-            f"batches; mAP {metrics['mAP']:.4f} against the fresh model's {fresh['mAP']:.4f}")
+        shown = {k: v for k, v in row.items() if k != "train_s"}  # times are the benchmark's
+        log(f"[accuracy] ablate_matching arm w={w:g} seed 7: {json.dumps(shown)}")
+        log(f"[accuracy] arm w={w:g}: K2 launches {steps_k2} in {args.steps} steps, K1 "
+            f"launches {score_k1} in {val_batches} validation batches; mAP "
+            f"{metrics['mAP']:.4f} against the fresh model's {fresh['mAP']:.4f}")
         if steps_k2 != args.steps or score_k1 != val_batches:
             raise RuntimeError(f"arm w={w}: K2 {steps_k2} for {args.steps} steps, K1 "
                                f"{score_k1} for {val_batches} batches")
@@ -5214,7 +4288,6 @@ def accuracy_arms(torch, detection, nms, nms_cuda, matching, matching_cuda, rese
         k1[f"accuracy_w{w:g}_max_abs_err"] = err
         out[f"accuracy_arm_w{w:g}_mAP"] = metrics["mAP"]
         out[f"accuracy_arm_w{w:g}_fresh_mAP"] = fresh["mAP"]
-        out[f"accuracy_arm_w{w:g}_ms_per_step"] = 1e3 * train_s / args.steps
         if w == 0.0:
             k1.update({f"accuracy_{k}": v for k, v in nms_timing(
                 nms, nms_cuda, cands, arm.cfg.model.detect,
@@ -5287,8 +4360,8 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
     trained a few dozen steps at b8 with hflip augmentation, then plain and
     hflip TTA and multi-scale TTA at (512, 640) without and with hflip on 8
     held-out images: K1 once per batch, and 3 times per image of the 2-scale
-    merge. The mAP after so few steps means nothing. Returns (results, K1
-    entries)."""
+    merge. The mAP after so few steps means nothing. Returns K1's
+    entries."""
     from shape_based_object_detection_torch.detection import MultiScaleDetector
     from shape_based_object_detection_torch.tools import ablate_tta as at
     from shape_based_object_detection_torch.tools._ablation import (
@@ -5297,11 +4370,9 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
 
     cfg = preset_config("retinanet_r50_fpn", 8, hflip=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
-    t = time.perf_counter()
     trained, _ = train_preset(cfg, ACCURACY_R50_STEPS, 16, "cuda", augment=True,
                               what=" (hflip aug on)")
     torch.cuda.synchronize()
-    train_s = time.perf_counter() - t
     dataset, loader = eval_split(cfg, 8)
     launched, kept = {}, {}
     with contextlib.redirect_stdout(Tee("[accuracy] ablate_tta R50-FPN-512 bf16 ")):
@@ -5311,12 +4382,10 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
     log(f"[accuracy] ablate_tta R50-FPN-512 bf16: K1 launches {launched} (want {want})")
     if launched != want or len(want) != 4:
         raise RuntimeError(f"ablate_tta R50 launched K1 {launched} times, not {want}")
-    log(f"[accuracy] R50-FPN-512 bf16: {ACCURACY_R50_STEPS} steps at b8 in {train_s:.2f} s "
-        "(host clock, first-call set-up included); after so few steps its mAP means nothing: "
-        "this drives the path")
+    log(f"[accuracy] R50-FPN-512 bf16: {ACCURACY_R50_STEPS} steps at b8; after so few steps "
+        "its mAP means nothing: this drives the path")
     k1 = {"accuracy_multiscale_launches": sum(n for name, n in launched.items()
                                               if name.startswith("ms"))}
-    out = {"accuracy_r50_train_s": train_s}
     # the merge's candidates at score threshold 0: after so few steps the
     # focal prior keeps every score under the tool's 0.05
     zero = dataclasses.replace(cfg.model, detect=dataclasses.replace(
@@ -5330,14 +4399,13 @@ def accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts):
         torch, nms, merge[0], zero.detect, f"the trained R50's 2-scale merge {scales}, threshold 0")
     k1.update({f"accuracy_multiscale_{k}": v for k, v in nms_timing(
         nms, nms_cuda, merge[0], zero.detect, "the trained R50's 2-scale merge").items()})
-    return out, k1
+    return k1
 
 
 def phase_accuracy(torch, config, detection, nms, nms_cuda, matching, matching_cuda,
                    reset_counts, workdir):
     """The accuracy tools on the card. Returns (results, K1 entries, K2
     entries)."""
-    t0 = time.perf_counter()
     out, k2 = accuracy_matching_analysis(torch, config, matching, matching_cuda, reset_counts)
     arms_out, k1, arms_k2, arm, args = accuracy_arms(
         torch, detection, nms, nms_cuda, matching, matching_cuda, reset_counts, workdir)
@@ -5349,11 +4417,7 @@ def phase_accuracy(torch, config, detection, nms, nms_cuda, matching, matching_c
     k1.update(tiers_k1)
     del arm
     torch.cuda.empty_cache()
-    ms_out, ms_k1 = accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts)
-    out.update(ms_out)
-    k1.update(ms_k1)
-    out["accuracy_s"] = time.perf_counter() - t0
-    log(f"[accuracy] the group in {out['accuracy_s']:.1f} s")
+    k1.update(accuracy_multiscale(torch, config, detection, nms, nms_cuda, reset_counts))
     return out, k1, k2
 
 
@@ -5446,73 +4510,58 @@ def run_phases(torch, want, only, t0, workdir):
         matching_cuda.launches = 0
         frozen_bn_cuda.launches = 0
 
+    def passed(group):
+        if want(group):
+            log(f"[group] {group} passed, {time.perf_counter() - t0:.1f} s into the run")
+
     results, k1, k2, k3 = {}, {}, {}, {}
     if want("base"):
         nms_err, walk_rows = phase_kernel(torch, nms, nms_cuda)
         phase_forward(torch, config, build_model, make_detect_fn)
-        nms_launches, k3_launches, e2e = phase_serving(torch, config, serving, nms_cuda,
-                                                       frozen_bn_cuda, detection, reset_counts)
-        k3["launches"] = k3_launches  # the serving path's
-        timing = phase_timing(torch, config, build_model, make_detect_fn, detection,
-                              nms, nms_cuda)
+        nms_launches, k3["launches"] = phase_serving(  # the serving path's
+            torch, config, serving, nms_cuda, frozen_bn_cuda, detection, reset_counts)
+        nms_row = phase_nms_timing(torch, config, build_model, detection, nms, nms_cuda)
         match_err = phase_match_kernel(torch, config, anchors_for_model)
         phase_train_check(torch, config, train, build_model)
-        trained = phase_training(torch, train, build_model, matching_cuda, nms_cuda,
-                                 reset_counts, train_config(config, "bfloat16", 16),
-                                 train_batch(np.random.default_rng(8), 16),
-                                 "bf16 R50-FPN-512 trainer b16")
-        match_launches = trained[-1]
-        train_timing = phase_train_timing(torch, train, matching, matching_cuda,
-                                          *trained[:-1], tag="train_b16_bf16")
-        train_timing.update(phase_train_profile(
-            torch, trained[0], trained[1], trained[5],
-            train_timing["train_b16_bf16_step_median_ms"], "train_b16_bf16"))
-        del trained
+        state, _, _, anchors, cfg, batch, match_launches = phase_training(
+            torch, train, build_model, matching_cuda, nms_cuda, reset_counts,
+            train_config(config, "bfloat16", 16), train_batch(np.random.default_rng(8), 16),
+            "bf16 R50-FPN-512 trainer b16")
+        match_row = phase_train_match_timing(torch, matching, matching_cuda, state, anchors,
+                                             cfg, batch)
+        del state, anchors, batch
 
         # the SSD family: config #3's matching, then SSD300 serving, then
         # SSD-512 training, remat, and trainable BatchNorm on R50-FPN-512
         ssd_match_err = phase_ssd_match_kernel(torch, config, anchors_for_model, augment_batch)
         phase_ssd_forward(torch, config, build_model, make_detect_fn)
-        ssd_nms_launches, preds = phase_ssd_serving(torch, config, serving, nms_cuda,
-                                                    reset_counts)
-        ssd_timing = phase_ssd_timing(torch, detection, nms, nms_cuda, preds)
-        del preds
+        ssd_nms_launches, pred = phase_ssd_serving(torch, config, serving, nms_cuda,
+                                                   reset_counts)
+        ssd_nms = phase_ssd_nms(torch, detection, nms, nms_cuda, pred)
+        del pred
         ssd_cfg = ssd_train_config(config, 2, warmup_steps=1, lr_decay_steps=(60_000, 80_000))
         ssd_cfg = dataclasses.replace(ssd_cfg, model=dataclasses.replace(
             ssd_cfg.model, precision="highest"))
         train_check(torch, train, build_model, ssd_cfg,
                     train_batch(np.random.default_rng(17), 2, g=100, classes=20),
                     "SSD-512 (config #3, shape_weight 0.3)")
-        ssd_cfg = ssd_train_config(config, 32)
-        ssd_trained = phase_training(
-            torch, train, build_model, matching_cuda, nms_cuda, reset_counts, ssd_cfg,
+        state, _, module, anchors, ssd_cfg, batch, ssd_match_launches = phase_training(
+            torch, train, build_model, matching_cuda, nms_cuda, reset_counts,
+            ssd_train_config(config, 32),
             train_batch(np.random.default_rng(18), 32, g=100, classes=20),
             "SSD-512 config #3 trainer (fp32, b32, shape_weight 0.3)")
-        ssd_match_launches = ssd_trained[-1]
-        ssd_train_timing = phase_train_timing(torch, train, matching, matching_cuda,
-                                              *ssd_trained[:-1], tag="ssd512_train_b32_fp32",
-                                              ties=False)
-        ssd_train_timing.update(phase_train_profile(
-            torch, ssd_trained[0], ssd_trained[1], ssd_trained[5],
-            ssd_train_timing["ssd512_train_b32_fp32_step_median_ms"],
-            "ssd512_train_b32_fp32"))
-        state, _, module, anchors, ssd_cfg, batch, _ = ssd_trained
-        del ssd_trained, state
-        ssd_train_timing.update(phase_remat(torch, train, build_model, module, anchors,
-                                            ssd_cfg, batch))
+        ssd_match = phase_train_match_timing(torch, matching, matching_cuda, state, anchors,
+                                             ssd_cfg, batch, ties=False)
+        del state
+        results.update(phase_remat(torch, train, build_model, module, anchors, ssd_cfg, batch))
         del module, batch
         torch.cuda.empty_cache()
         phase_train_bn(torch, config, train, build_model)
-        results.update({**e2e, **{k: v for k, v in timing.items() if k != "nms"},
-                        **{k: v for k, v in train_timing.items() if k != "match"},
-                        **{k: v for k, v in ssd_timing.items() if k != "nms"},
-                        **{k: v for k, v in ssd_train_timing.items() if k != "match"}})
-        ssd_nms, ssd_match = ssd_timing["nms"], ssd_train_timing["match"]
         k1.update({
             "launches": nms_launches,  # the serving path's
             "bit_equal": True,  # phase_kernel raises on any differing bit
             "max_abs_err": nms_err,
-            **timing["nms"],
+            **nms_row,
             "library_ms": None,
             # the SSD300 serving path's launches, and K1 at (16, 400, 200) there
             "ssd_launches": ssd_nms_launches,
@@ -5525,19 +4574,22 @@ def run_phases(torch, want, only, t0, workdir):
             "launches": match_launches,  # the training path's
             "bit_equal": True,  # assignments; phase_match_kernel raises otherwise
             "max_abs_err": match_err,
-            **train_timing["match"],
+            **match_row,
             "library_ms": None,
             # the SSD-512 trainer's launches, and K2 at (32, 24564, 100) with
             # shape_weight 0.3 there
             "ssd_launches": ssd_match_launches,
             "ssd_max_abs_err": ssd_match_err,
             **{f"ssd_{k}": v for k, v in ssd_match.items()}})
+    passed("base")
 
     if want("k3"):
         k3.update(phase_frozen_bn_kernel(torch, config, serving))
+    passed("k3")
     # the training application
     if want("bn"):
-        results.update(phase_bn_repair(torch, config, train, build_model, make_detect_fn))
+        results.update(phase_bn_repair(torch, config, build_model))
+    passed("bn")
     if want("pipelined"):
         results.update(phase_pipelined(
             torch, train, build_model, matching_cuda, train_config(config, "bfloat16", 16),
@@ -5547,10 +4599,10 @@ def run_phases(torch, want, only, t0, workdir):
             torch, train, build_model, matching_cuda, ssd_train_config(config, 32),
             [train_batch(np.random.default_rng(40 + i), 32, g=100, classes=20)
              for i in range(4)], "ssd512_b32_fp32"))
+    passed("pipelined")
     if want("app"):
-        ckpt, cli_k1, cli_k2, app = phase_app(torch, train, cli_train, nms_cuda,
-                                              matching_cuda, reset_counts, workdir)
-        results.update(app)
+        ckpt, cli_k1, cli_k2 = phase_app(torch, cli_train, nms_cuda, matching_cuda,
+                                         reset_counts, workdir)
         phase_preempt(torch, cli_train, workdir)
         eval_k1, eval_launches, config2_launches, ev = phase_eval(
             torch, config, train, build_model, cli_train, cli_eval, nms, nms_cuda, detection,
@@ -5566,34 +4618,30 @@ def run_phases(torch, want, only, t0, workdir):
         # K2 once per train_cli step; its time and bound on the CLI's batch
         k2.update({"cli_launches": cli_k2, "cli_max_abs_err": cli_match.pop("max_abs_err"),
                    **{f"cli_{k}": v for k, v in cli_match.items()}})
+    passed("app")
     if want("ckpt"):
         results.update(phase_ckpt_round_trip(torch, config, train, build_model, workdir))
+    passed("ckpt")
     if want("loader"):
-        results.update(phase_loader(torch))
+        phase_loader(torch)
+    passed("loader")
     # the float serving tier: TTA, the NMS variants, the server and its CLIs
     if want("serve"):
         from shape_based_object_detection_torch.cli import detect_cli as cli_detect
 
-        serve_out, serve_k1 = phase_serve_nms(torch, config, build_model, detection, nms,
-                                              nms_cuda, reset_counts)
-        results.update(serve_out)
-        large_out, large_k1 = phase_serve_large_merges(torch, config, build_model, detection,
-                                                       nms, nms_cuda, reset_counts)
-        results.update(large_out)
-        serve_k1.update(large_k1)
-        ms_out, ms_k1 = phase_serve_multiscale(torch, config, build_model, serving, nms,
-                                               nms_cuda, reset_counts)
-        results.update(ms_out)
-        serve_k1.update(ms_k1)
-        server_out, serve_launches = phase_server(torch, config, serving, nms_cuda,
-                                                  reset_counts, workdir)
-        results.update(server_out)
-        clis = phase_serve_clis(torch, cli_detect, nms_cuda, reset_counts, workdir)
-        results.update(clis)
         # K1 once per TTA batch, S + 1 per multi-scale batch, once per served
         # batch; its time and bound on the hflip and 2-scale merges
-        k1.update({**serve_k1, "serve_launches": serve_launches,
-                   "detect_cli_launches": clis["detect_cli_launches"]})
+        k1.update(phase_serve_nms(torch, config, build_model, detection, nms, nms_cuda,
+                                  reset_counts))
+        k1.update(phase_serve_large_merges(torch, config, build_model, detection, nms,
+                                           nms_cuda, reset_counts))
+        k1.update(phase_serve_multiscale(torch, config, build_model, nms, nms_cuda,
+                                         reset_counts))
+        k1["serve_launches"] = phase_server(torch, config, serving, nms_cuda, reset_counts,
+                                            workdir)
+        k1["detect_cli_launches"] = phase_serve_clis(torch, cli_detect, nms_cuda,
+                                                     reset_counts, workdir)
+    passed("serve")
     # the int8 serving tiers and the exported artifact
     if want("int8"):
         int8_out, int8_k1 = phase_int8(torch, config, serving, detection, build_model,
@@ -5602,23 +4650,21 @@ def run_phases(torch, want, only, t0, workdir):
         # K1 once per batch in every tier, 3 per 2-scale int8 batch, once per
         # artifact call
         k1.update(int8_k1)
+    passed("int8")
     # the input pipelines: the cache, the card-staged cache, worker processes
     if want("data"):
-        results.update(phase_data(torch, train, cli_train, matching_cuda, reset_counts,
-                                  workdir))
+        results.update(phase_data(torch, cli_train, matching_cuda, reset_counts, workdir))
+    passed("data")
     # data parallelism: NCCL groups of one, torchrun, two ranks over gloo
     if want("dist"):
-        dist_out, dist_k1, dist_k2 = phase_dist_nccl(torch, config, train, build_model,
-                                                     matching_cuda, nms_cuda, nms, detection,
-                                                     reset_counts)
-        results.update(dist_out)
-        cli_out, cli_k2, cli_k1 = phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts,
-                                                 workdir)
-        results.update(cli_out)
+        dist_k1, dist_k2 = phase_dist_nccl(torch, config, train, build_model, matching_cuda,
+                                           nms_cuda, nms, detection, reset_counts)
+        cli_k2, cli_k1 = phase_dist_cli(torch, cli_eval, nms_cuda, reset_counts, workdir)
         results.update(phase_dist_gloo(torch, config, train, build_model, workdir))
         # K2 once per data-parallel step and K1 once per sharded eval batch
         k1.update({**dist_k1, **cli_k1})
         k2.update({**dist_k2, **cli_k2})
+    passed("dist")
     # the model axis: image rows split across ranks (config #5, and 2 x 2)
     if want("spatial"):
         spatial_out, spatial_k1, spatial_k2 = phase_spatial(
@@ -5626,14 +4672,15 @@ def run_phases(torch, want, only, t0, workdir):
         results.update(spatial_out)
         k1.update(spatial_k1)
         k2.update(spatial_k2)
+    passed("spatial")
 
     # the checkpoint tools and the examples
     if want("tools"):
-        tools_out, tools_k1, tools_k2 = phase_tools(torch, cli_train, cli_eval, nms_cuda,
-                                                    matching_cuda, reset_counts, workdir)
-        results.update(tools_out)
+        tools_k1, tools_k2 = phase_tools(torch, cli_train, cli_eval, nms_cuda, matching_cuda,
+                                         reset_counts, workdir)
         k1.update(tools_k1)
         k2.update(tools_k2)
+    passed("tools")
 
     # the accuracy tools: the matching analysis, the shape-matching
     # ablation's two arms, TTA and the int8 tiers on the trained weights
@@ -5644,6 +4691,7 @@ def run_phases(torch, want, only, t0, workdir):
         results.update(acc_out)
         k1.update(acc_k1)
         k2.update(acc_k2)
+    passed("accuracy")
 
     log(json.dumps(results))
     if only:
